@@ -2,7 +2,7 @@
 //
 // The reference implements its entire control runtime natively (Rust);
 // here the host-side control plane — the code that runs per block on the
-// CPU while the TPU renders — is C++: MIDI parsing, LRU voice allocation
+// CPU while the accelerator renders — is C++: MIDI parsing, LRU voice allocation
 // (reference voice_allocator.rs semantics), event packing/sorting, and the
 // offline windowed-sinc asset resampler (reference asset/resample.rs).
 //

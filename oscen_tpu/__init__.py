@@ -1,9 +1,9 @@
-"""oscen_tpu — a TPU-native audio synthesis framework in JAX.
+"""oscen_tpu — an audio synthesis framework in JAX.
 
 A from-scratch rebuild of the capabilities of reedrosenbluth/oscen
-(a Rust compile-time-graph audio engine) designed for TPU hardware:
+(a Rust compile-time-graph audio engine) for an accelerator (an NVIDIA GPU):
 the declarative graph becomes a traced, jit-compiled block function; voices
-batch across VPU lanes; per-sample recurrences become scans, prefix sums and
+batch across kernel lanes; per-sample recurrences become scans, prefix sums and
 closed forms; control logic (MIDI, voice allocation) runs host-side per
 block, mirroring the reference's control-thread↔audio-thread split.
 

@@ -71,8 +71,8 @@ class ValueRampState:
         jitted block function as a [1]-shaped operand that edge
         normalization broadcasts lazily, so XLA treats constant parameters
         as constants (a connected-but-idle parameter otherwise inflates
-        whole-block math — measured +33 µs/block on the 256-voice pivot
-        from its ~25 broadcast [B]-param arrays).  Indexed reads clamp
+        whole-block math with broadcast [B]-param arrays).  Indexed reads
+        clamp
         (jnp.take mode="clip"), so offset-based consumers are unaffected.
         The [1] vs [B] shape is part of the jit key: a parameter that
         ramps retraces once, then both variants stay cached.

@@ -1,6 +1,6 @@
 """Core endpoint/event/sample-rate types.
 
-TPU-native re-design of the reference's endpoint type system
+A JAX re-design of the reference's endpoint type system
 (/root/reference/oscen-lib/src/graph/types.rs). Values, streams, events and
 assets keep the same *semantics* (kind checking, defaults, per-sample
 propagation) but are represented as JAX arrays with a trailing channel axis
@@ -113,7 +113,7 @@ class ParamSpec:
     """Parameter UI/host spec attached to a graph value input.
 
     Mirrors the reference's ``ParamSpec`` (ast.rs:173-199): range, log curve,
-    ramp length in frames, and the nih-plug param fields.  The TPU build
+    ramp length in frames, and the nih-plug param fields.  This build
     exposes these through :meth:`oscen_tpu.graph.Graph.param_specs` (the
     ``nih_params`` equivalent is a spec-dict export).
     """

@@ -122,7 +122,7 @@ def make_block_fn(prog, block_len: int, shard=None, literal_params=None):
     instance axis is its local shard (``count // n_shards``), fan-in
     sums over the instance axis finish with an explicit
     ``jax.lax.psum`` over the mesh axis (the reference's FanIn edge,
-    emit_edge.rs:67-84, as an ICI collective), and graph-output
+    emit_edge.rs:67-84, as a collective), and graph-output
     instance-axis reductions likewise.  Host-staged per-voice value
     arrays arrive pre-sliced by shard_map's in_specs.
 
@@ -189,8 +189,8 @@ def make_block_fn(prog, block_len: int, shard=None, literal_params=None):
     # FanIn fusion: node-array outputs whose ONLY consumers are bare
     # full-instance fan-in sums (and which feed no island, feedback
     # snapshot, or graph output expression) may be pre-reduced inside the
-    # producing node's batched kernel — the voice mixdown never leaves
-    # VMEM.  The node advertises support by accepting a ``fanin_eps``
+    # producing node's batched kernel — the voice mixdown never reaches
+    # device memory.  The node advertises support by accepting a ``fanin_eps``
     # kwarg in process_block_batched and returning ``__fanin__<ep>``.
     import os as _os
     _fusion_on = _os.environ.get("OSCEN_FANIN_FUSION", "1") != "0"
@@ -224,45 +224,6 @@ def make_block_fn(prog, block_len: int, shard=None, literal_params=None):
                 _eps.add(_ep.name)
         if _eps and _fusion_on:
             fanin_only[_name] = frozenset(_eps)
-
-    # Stream-epilogue fusion (static half): a fused-mixdown output whose
-    # SINGLE consumer is a scalar node implementing ``kernel_epilogue``
-    # (e.g. Tremolo) can run that node's per-sample math inside the
-    # producer's Pallas kernel.  Parity is bit-exact (tested), but the
-    # fusion measured SLOWER on the flagship (26.5 vs 22.9 us/block,
-    # interleaved A/B): the [B,2] narrow-lane kernel store + per-body
-    # SMEM/sine work on the kernel's critical path cost more than the
-    # ~2.5 us of XLA-side pad/copy glue it removes.  Default OFF; kept
-    # as infrastructure (a wider-lane output layout may flip the sign).
-    _epi_on = _os.environ.get("OSCEN_EPILOGUE_FUSION", "0") != "0"
-    epi_static: Dict[str, Tuple[str, str]] = {}
-    if _epi_on and shard is None:
-        for _name, _eps in fanin_only.items():
-            for _ep in _eps:
-                _edges = _consumers.get((_name, _ep), [])
-                if len(_edges) != 1:
-                    continue
-                _t = _edges[0].dst_node
-                _ti = ir.nodes.get(_t)
-                if _ti is None or _ti.count != 1 or _ti.rate != 1 \
-                        or ir.nodes[_name].rate != 1 \
-                        or _t in island_nodes \
-                        or not hasattr(_ti.node, "kernel_epilogue"):
-                    continue
-                _e = _edges[0]
-                _ok = True
-                for p in _ti.node.INPUTS:
-                    if p.kind == Kind.EVENT:
-                        _ok = False          # conservative: no events
-                        break
-                    if p.kind == Kind.STREAM:
-                        want = [_e] if p.name == _e.dst_endpoint else []
-                        if prog.edges_by_dst.get((_t, p.name), []) != want:
-                            _ok = False
-                            break
-                if not _ok or len(_ti.node.OUTPUTS) != 1:
-                    continue
-                epi_static[_name] = (_ep, _t)
 
     def node_count(name: str) -> int:
         return ir.nodes[name].count
@@ -594,12 +555,7 @@ def make_block_fn(prog, block_len: int, shard=None, literal_params=None):
             return jnp.full(full, float(ep.default or 0.0), jnp.float32)
 
         # -------------------------------------------------------------- #
-        fused_away: set = set()
-
         def process_single(name: str) -> None:
-            if name in fused_away:
-                explain.note(node=name, path="fused_into_producer_epilogue")
-                return  # ran inside its producer's kernel epilogue
             with explain.processing(name):
                 _process_single_inner(name)
 
@@ -615,30 +571,12 @@ def make_block_fn(prog, block_len: int, shard=None, literal_params=None):
                    and ev_bufs[f"{name}.{ep.name}"].capacity > 0}
             st = new_state[name]
             batched = None
-            epi = None
             if inst.count > 1 and not evs and hasattr(
                     node, "process_block_batched"):
-                # voice-batched fast path (e.g. one Pallas kernel
-                # across all instances) — None falls back to vmap
+                # voice-batched fast path (e.g. one kernel across all
+                # instances) — None falls back to vmap
                 import inspect as _inspect
                 sig = _inspect.signature(node.process_block_batched)
-                if name in epi_static and "epilogue" in sig.parameters:
-                    # dynamic half of the epilogue-fusion check: the
-                    # consumer's value inputs must be block-constant
-                    # in THIS trace (const staging, [1]-shaped)
-                    _ep, _t = epi_static[name]
-                    _ti = ir.nodes[_t]
-                    _vals_eps = {p.name for p in _ti.node.INPUTS
-                                 if p.kind == Kind.VALUE}
-                    if _vals_eps <= const_eps(_t):
-                        _tins = gather_block(_t, only_eps=_vals_eps)
-                        _vals = {k: v[0] for k, v in _tins.items()}
-                        _C, _fn, _params, _tstate = \
-                            _ti.node.kernel_epilogue(
-                                new_state[_t], _vals,
-                                prog.scaled_sr(_ti), Bn)
-                        epi = (_ep, _t, _C, _fn, _params, _tstate,
-                               _ti.node.OUTPUTS[0].name)
                 kw = {}
                 if "fanin_eps" in sig.parameters:
                     kw["fanin_eps"] = fanin_only.get(name, frozenset())
@@ -646,8 +584,6 @@ def make_block_fn(prog, block_len: int, shard=None, literal_params=None):
                     kw["const_ins"] = const_eps(name)
                 if "literal_ins" in sig.parameters:
                     kw["literal_ins"] = literal_eps(name)
-                if epi is not None:
-                    kw["epilogue"] = (epi[0], epi[2], epi[3], epi[4])
                 batched = node.process_block_batched(
                     st, ins, evs, sr, Bn, **kw)
             if batched is not None:
@@ -655,12 +591,6 @@ def make_block_fn(prog, block_len: int, shard=None, literal_params=None):
                     explain.note(path="batched",
                                  const_ins=sorted(const_eps(name)))
                 st, outs = batched
-                if epi is not None and f"__epi__{epi[0]}" in outs:
-                    _ep, _t, _C, _fn, _params, _tstate, _oname = epi
-                    env[(_t, _oname)] = outs.pop(f"__epi__{_ep}")
-                    new_state[_t] = _tstate
-                    fused_away.add(_t)
-                    explain.note(epilogue_fused_consumer=_t)
             elif inst.count > 1:
                 explain.note(path="vmap")
                 import inspect as _inspect

@@ -775,9 +775,7 @@ class CompiledGraph:
                 # last-write-wins per edge in edge order, per instance
                 # (connect semantics).  With N voices this makes the
                 # prepass O(events) in real work instead of O(voices)
-                # edge scans (at 256 voices the per-instance form
-                # measured ~2.7 ms/block on a MIDI-dense stream,
-                # tools/evabl.py).
+                # edge scans.
                 instances = prog.host_instances[name]
                 cnt = inst.count
                 node0 = instances[0]
@@ -833,9 +831,7 @@ class CompiledGraph:
                 # block's offsets — stale), run host_process.  The
                 # gathered per-endpoint lists persist and are poked in
                 # place — the prepass does O(events) Python work, not
-                # O(voices) (at 256 voices the full per-instance loop
-                # measured ~0.5 ms/block on a MIDI-dense stream,
-                # tools/evabl.py).
+                # O(voices).
                 hs = self._host_steady.get(name)
                 if hs is None or not steady_cls or hs["B"] != block_len \
                         or hs["v_in"] != v_in:
@@ -954,7 +950,7 @@ class CompiledGraph:
                 # the dense [count, cap] buffers are built in ONE pass
                 # filling only event-bearing rows (O(events), not
                 # O(voices) EventBuffer objects — prepass cost matters on
-                # the MIDI-dense path, tools/evabl.py)
+                # the MIDI-dense path)
                 cnt = inst.count
                 per_inst: List[Any] = [_EMPTY_EVS] * cnt
                 for e in edges:
@@ -1104,7 +1100,7 @@ class CompiledGraph:
     def enable_sharding(self, mesh, axis_name: str = "voices") -> None:
         """Switch block-mode execution to SPMD over ``mesh``: the block
         function runs under ``shard_map`` with every node array's voice
-        axis sharded, fan-in mix-downs as explicit psums over ICI, and
+        axis sharded, fan-in mix-downs as explicit psums, and
         host-staged per-voice arrays/event buffers sliced per device
         (SURVEY §5.8's scale-out design, executed rather than placed)."""
         if self.mode != "block":
@@ -1235,10 +1231,9 @@ class CompiledGraph:
         # Event-bearing blocks pack all per-block control staging (param
         # blocks, host values, event buffers) into ONE f32 vector and a
         # single host->device transfer, unpacked inside the jitted
-        # wrapper: individual small transfers measured ~66 us EACH over
-        # the device link, dominating the MIDI-dense path (tools/
-        # evabl.py); one packed transfer of the same bytes is ~80 us
-        # total.  Param-only control changes keep the per-array path —
+        # wrapper: each host->device transfer pays a fixed latency, so
+        # one packed transfer replaces a dozen small ones on the
+        # MIDI-dense path.  Param-only control changes keep the per-array path —
         # their staging shapes equal the steady block's, so they REUSE
         # the steady-compiled variant instead of adding a packed one
         # (pinned by tests/test_realtime_safety.py).
@@ -1592,11 +1587,11 @@ class CompiledGraph:
     def steady_checksum(self, num_blocks: int,
                         block_len: Optional[int] = None) -> float:
         """Render ``num_blocks`` steady-state blocks on device and return
-        only a scalar energy checksum.  The measurement primitive for
-        remote chips: all compute is forced (the checksum depends on every
-        sample) while transfer is 4 bytes, so timing two span lengths and
-        subtracting yields pure chip throughput independent of link RTT
-        and bandwidth."""
+        only a scalar energy checksum.  The throughput measurement
+        primitive: all compute is forced (the checksum depends on every
+        sample) while transfer is 4 bytes, so the time is the device's
+        (timing two span lengths and subtracting also cancels the fixed
+        per-call cost)."""
         B = int(block_len or self.block_size)
         ev_bufs, per_block, ev_caps = self._steady_staging(B)
         # The span length is a RUNTIME argument (fori_loop, not a

@@ -1,4 +1,4 @@
-"""Node contract — the TPU-native ``SignalProcessor``.
+"""Node contract — the JAX ``SignalProcessor``.
 
 The reference node contract (graph/traits.rs:27-52) is: ``prepare()``
 (recompute rate-derived state), ``process()`` (advance one sample, I/O via
@@ -152,9 +152,8 @@ class StepValue:
     tensor reconstructed to ``[B(, C)]`` ON DEVICE at block-fn entry
     (block_mode ``reconstruct_step_values``) — instead of a host-built
     ``[B, C]`` array.  At 256 voices and B=1024 the host-built array is
-    ~1 MB per block over the host↔device link; a MIDI-every-block
-    workload measured 0.4-0.8x RT before this protocol (tools/evabl.py)
-    with the transfer dominating.  The reference pays no such cost
+    ~1 MB per block over the host↔device link, in every block of a
+    MIDI-every-block workload.  The reference pays no such cost
     because control and audio share memory (main.rs:197-209); this is
     the host↔device redesign of the same per-callback event handling.
     """

@@ -5,8 +5,8 @@ Rebuild of the reference example
 parser → voice allocator → per-voice handlers → N additive voices
 (AmplitudeSource → OscillatorBank, electric_piano_voice.rs:362-403) →
 fan-in mix → stereo tremolo.  The reference runs 16 voices on a CPU; the
-voice axis here is the TPU batch axis (north star: 256 voices at ≥1000×
-real time per chip).
+voice axis here is the batch axis (256 voices on one GPU in the
+benchmark).
 """
 
 from __future__ import annotations
@@ -48,8 +48,8 @@ def build_voice() -> Graph:
 
 def build_electric_piano(num_voices: int = 16,
                          fused: bool = True) -> Graph:
-    """``fused=True`` uses the single fused voice node (one Pallas kernel
-    across all voices on TPU); ``fused=False`` uses the two-node subgraph
+    """``fused=True`` uses the single fused voice node (one kernel across
+    all voices on a GPU); ``fused=False`` uses the two-node subgraph
     exactly as the reference structures it.  Both are equivalence-tested.
     """
     g = Graph(f"ElectricPiano{num_voices}")

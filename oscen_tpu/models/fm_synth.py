@@ -31,10 +31,11 @@ TAU = 2.0 * math.pi
 class FmOperatorChain(Node):
     """The FMVoice operator section fused into one node: op3 → route
     crossfade → op2 → mixer → op1 (fm_voice.rs connections :119-147), each
-    an FM operator with self-feedback.  ``tick`` composes the exact
-    per-sample math; event-free blocks on TPU run ONE Pallas kernel for
-    all voices (ops/pallas/fm.py fm_chain3_scan) instead of three
-    sequential per-operator recurrences."""
+    an FM operator with self-feedback.  ``tick`` runs the per-sample
+    chain step (ops/pallas/fm.py ``fm_chain_step``); event-free blocks
+    with a kernel route scan the same step for all voices in ONE
+    lane-parallel kernel instead of three sequential per-operator
+    recurrences."""
 
     INPUTS = (value("base_freq", 440.0),
               value("op3_ratio", 3.0), value("op2_ratio", 2.0),
@@ -53,30 +54,18 @@ class FmOperatorChain(Node):
                 "prevs": jnp.zeros((3,), jnp.float32)}
 
     def tick(self, state, ins, sr):
-        ph = state["phases"]
-        pv = state["prevs"]
+        from ..ops.pallas.fm import fm_chain_step
         f = ins["base_freq"]
-
-        from ..ops.fastmath import sin_turns
-
-        def op(phase, prev, pm, env, ratio, fb, lvl):
-            # sin·(env·lvl): the same association the fused kernel uses
-            # (levels folded into env streams) — keeps parity bit-exact
-            y = sin_turns(phase + pm + prev * fb) * (env * lvl)
-            phase = phase + f * ratio / sr.hz
-            return phase - jnp.trunc(phase), y
-
-        mix = jnp.clip(ins["route"], 0.0, 1.0)
-        ph3, y3 = op(ph[0], pv[0], 0.0, ins["env3"], ins["op3_ratio"],
-                     ins["op3_feedback"], ins["op3_level"])
-        a = y3 * (1.0 - mix)
-        b = y3 * mix
-        ph2, y2 = op(ph[1], pv[1], a, ins["env2"], ins["op2_ratio"],
-                     ins["op2_feedback"], ins["op2_level"])
-        ph1, y1 = op(ph[2], pv[2], y2 + b, ins["env1"], ins["op1_ratio"],
-                     ins["op1_feedback"], ins["op1_level"])
-        return ({"phases": jnp.stack([ph3, ph2, ph1]),
-                 "prevs": jnp.stack([y3, y2, y1])},
+        # sin·(env·lvl): the block path folds the levels into the
+        # envelope streams the same way, keeping parity bit-exact
+        xs = tuple(f * ins[f"op{i}_ratio"] / sr.hz for i in (3, 2, 1)) \
+            + tuple(ins[f"env{i}"] * ins[f"op{i}_level"] for i in (3, 2, 1)) \
+            + tuple(ins[f"op{i}_feedback"] for i in (3, 2, 1)) \
+            + (jnp.clip(ins["route"], 0.0, 1.0),)
+        carry, y1 = fm_chain_step(
+            tuple(state["phases"]) + tuple(state["prevs"]), xs)
+        return ({"phases": jnp.stack(carry[:3]),
+                 "prevs": jnp.stack(carry[3:])},
                 {"output": y1})
 
     FB_EPS = ("op3_feedback", "op2_feedback", "op1_feedback")
@@ -84,8 +73,7 @@ class FmOperatorChain(Node):
     def process_block_batched(self, state, ins, events, sr, block_len,
                               const_ins=frozenset(), literal_ins=None):
         from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
-        if not use:
+        if not pallas_mode()[0]:
             return None
         from ..ops.pallas.fm import fm_chain3_scan
 
@@ -115,7 +103,7 @@ class FmOperatorChain(Node):
         lits = literal_ins or {}
         if all(ep in lits for ep in self.FB_EPS):
             fb_static = all(lits[ep] == 0.0 for ep in self.FB_EPS)
-        eligible = dt.shape[1] == 1 and block_len % 8 == 0
+        eligible = dt.shape[1] == 1
         explain.note(kernel="fm_chain3", const_dt=dt_const,
                      fast_path="zero_feedback", eligible=eligible,
                      engaged=(False if not eligible else
@@ -130,7 +118,7 @@ class FmOperatorChain(Node):
             jnp.moveaxis(state["prevs"], 0, 1),
             dt, lvl, fb, mix,
             tbv(ins["env3"]), tbv(ins["env2"]), tbv(ins["env1"]),
-            interpret=interp, fb_static=fb_static)
+            fb_static=fb_static)
         return ({"phases": jnp.moveaxis(ph, 0, 1),
                  "prevs": jnp.moveaxis(pv, 0, 1)},
                 {"output": jnp.moveaxis(y, 0, 1)})
@@ -147,7 +135,7 @@ OP_DEFAULTS = {
 
 def build_fm_voice(fused: bool = False) -> Graph:
     """``fused=True`` collapses the operator section into the
-    FmOperatorChain node (one Pallas kernel per block on TPU);
+    FmOperatorChain node (one lane-parallel kernel per block);
     ``fused=False`` mirrors the reference graph structure node for node.
     Both are equivalence-tested."""
     if fused:

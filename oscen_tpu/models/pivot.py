@@ -61,10 +61,10 @@ class PivotOperatorChain(Node):
     Unlike the fm-synth chain, the RAW sine feeds each operator's own
     self-feedback (pivot's FmOperator has no envelope/level inputs —
     examples/pivot/src/fm_operator.rs:48-69); the enveloped/leveled
-    signal drives the modulation routing.  ``tick`` composes the exact
-    per-sample math; event-free blocks on TPU run ONE Pallas kernel for
-    all voices (ops/pallas/fm.py pivot_chain3_scan), the fused-chain
-    treatment that took the fm synth from 93.6 to 44.6 µs/block.
+    signal drives the modulation routing.  ``tick`` runs the per-sample
+    chain step (ops/pallas/fm.py ``pivot_chain_step``); event-free blocks
+    with a kernel route scan the same step for all voices in ONE
+    lane-parallel kernel.
     """
 
     INPUTS = (value("base_freq", 440.0),
@@ -83,31 +83,17 @@ class PivotOperatorChain(Node):
                 "prevs": jnp.zeros((3,), jnp.float32)}  # RAW sine history
 
     def tick(self, state, ins, sr):
-        ph = state["phases"]
-        pv = state["prevs"]
+        from ..ops.pallas.fm import pivot_chain_step
         f = ins["base_freq"]
-
-        from ..ops.fastmath import sin_turns
-
-        def op(phase, prev, pm, ratio, fb):
-            y = sin_turns(phase + pm + prev * fb)    # raw -> feedback
-            phase = phase + f * ratio / sr.hz
-            return phase - jnp.trunc(phase), y
-
-        mix = jnp.clip(ins["route"], 0.0, 1.0)
-        ph3, y3 = op(ph[0], pv[0], 0.0, ins["op3_ratio"],
-                     ins["op3_feedback"])
-        a3 = y3 * (ins["env3"] * ins["op3_level"])   # vca -> level gain
-        a = a3 * (1.0 - mix)
-        b = a3 * mix
-        ph2, y2 = op(ph[1], pv[1], a, ins["op2_ratio"],
-                     ins["op2_feedback"])
-        a2 = y2 * (ins["env2"] * ins["op2_level"])
-        ph1, y1 = op(ph[2], pv[2], a2 + b, ins["op1_ratio"],
-                     ins["op1_feedback"])
-        out = y1 * (ins["env1"] * 1.0)               # vca1, no level gain
-        return ({"phases": jnp.stack([ph3, ph2, ph1]),
-                 "prevs": jnp.stack([y3, y2, y1])},
+        xs = tuple(f * ins[f"op{i}_ratio"] / sr.hz for i in (3, 2, 1)) \
+            + (ins["env3"] * ins["op3_level"], ins["env2"] * ins["op2_level"],
+               ins["env1"] * 1.0) \
+            + tuple(ins[f"op{i}_feedback"] for i in (3, 2, 1)) \
+            + (jnp.clip(ins["route"], 0.0, 1.0),)
+        carry, out = pivot_chain_step(
+            tuple(state["phases"]) + tuple(state["prevs"]), xs)
+        return ({"phases": jnp.stack(carry[:3]),
+                 "prevs": jnp.stack(carry[3:])},      # RAW sine history
                 {"output": out})
 
     FB_EPS = ("op3_feedback", "op2_feedback", "op1_feedback")
@@ -115,8 +101,7 @@ class PivotOperatorChain(Node):
     def process_block_batched(self, state, ins, events, sr, block_len,
                               const_ins=frozenset(), literal_ins=None):
         from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
-        if not use:
+        if not pallas_mode()[0]:
             return None
         from ..ops.pallas.fm import pivot_chain3_scan
 
@@ -138,7 +123,7 @@ class PivotOperatorChain(Node):
         lits = literal_ins or {}
         if all(ep in lits for ep in self.FB_EPS):
             fb_static = all(lits[ep] == 0.0 for ep in self.FB_EPS)
-        eligible = dt.shape[1] == 1 and block_len % 8 == 0
+        eligible = dt.shape[1] == 1
         explain.note(kernel="pivot_chain3", const_dt=dt_const,
                      fast_path="zero_feedback", eligible=eligible,
                      engaged=(False if not eligible else
@@ -153,14 +138,14 @@ class PivotOperatorChain(Node):
             jnp.moveaxis(state["prevs"], 0, 1),
             dt, lvl, fb, mix,
             tbv(ins["env3"]), tbv(ins["env2"]), tbv(ins["env1"]),
-            interpret=interp, fb_static=fb_static)
+            fb_static=fb_static)
         return ({"phases": jnp.moveaxis(ph, 0, 1),
                  "prevs": jnp.moveaxis(pv, 0, 1)},
                 {"output": jnp.moveaxis(y, 0, 1)})
 
 
 def build_pivot_voice_fused() -> Graph:
-    """PivotVoice with the operator section fused (one Pallas kernel) and
+    """PivotVoice with the operator section fused (one kernel) and
     the four envelopes horizontally fused into an AdsrBank."""
     from ..nodes.envelope import AdsrBank
     g = Graph("PivotVoiceFused")
@@ -322,7 +307,7 @@ def build_pivot(num_voices: int = 8, fused: bool = True) -> Graph:
     """The PivotGraph app: MIDI -> allocator -> 8 PivotVoices -> fan-in
     (main.rs:59-168; the reference runs 8 voices).  ``fused=True`` (the
     production path) collapses each voice's operator section into the
-    PivotOperatorChain Pallas kernel and its envelopes into an AdsrBank;
+    PivotOperatorChain kernel and its envelopes into an AdsrBank;
     ``fused=False`` mirrors the reference node for node.  Both are
     equivalence-tested."""
     g = Graph(f"Pivot{num_voices}")

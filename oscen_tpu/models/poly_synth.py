@@ -3,7 +3,7 @@
 A voices-batched version of the reference's README synth + MIDI stack:
 MidiParser → VoiceAllocator → per-voice MidiVoiceHandler →
 (PolyBlep saw → TptFilter) * AdsrEnvelope → fan-in mix.  The voice axis is
-the TPU batch axis (VPU lanes / mesh sharding); the mix-down is the FanIn
+the batch axis (kernel lanes / mesh sharding); the mix-down is the FanIn
 sum (reference emit_edge.rs:67-84).
 """
 

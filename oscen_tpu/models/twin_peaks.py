@@ -23,8 +23,8 @@ def build_twin_peaks(fused: bool | None = None) -> Graph:
     """The nih-twin-peaks plugin graph.
 
     ``fused=True`` (the default) computes both LP18s in adjacent lanes
-    of ONE sequential kernel launch (:class:`DualLP18Diff` — 1.9x on
-    TPU, tools/lp18abl.py); ``fused=False`` keeps the reference's
+    of ONE sequential kernel launch (:class:`DualLP18Diff`);
+    ``fused=False`` keeps the reference's
     two-node structure.  Bit-identical on the kernel path, ulp-level on
     the CPU scan fallback
     (tests/test_models_aux.py::test_twin_peaks_fused_matches_two_node).

@@ -213,7 +213,7 @@ class Tremolo(Node):
     same formula vectorized, so block mode is bit-identical to the
     per-sample tick AND block-size invariant, with no sequential scan in
     the common (rate-constant) case — this node sits on the flagship's
-    single-lane mixdown path where a sequential kernel costs ~10 µs/block.
+    single-lane mixdown path.
     """
 
     INPUTS = (stream("input", 0.0), value("rate", 5.0), value("depth", 0.5))
@@ -255,54 +255,7 @@ class Tremolo(Node):
         return ({"anchor": anchor, "k": k, "dt_last": dt},
                 {"output": out})
 
-    def kernel_epilogue(self, state, vals, sr, block_len):
-        """Stream-epilogue fusion protocol (graph/block_mode.py): when
-        this node's only stream input is a producer's fused voice
-        mixdown and its value inputs are block-constant, the compiler
-        runs the per-sample pan INSIDE the producer's Pallas kernel.
-        Returns ``(C, fn, params, new_state)``; ``fn(mix [U,1], t0,
-        p_ref) -> [U, C]`` must use only the SMEM params row.  The
-        phase/rebase state advance happens here (closed form, same
-        arithmetic as the block fast path)."""
-        dt0 = vals["rate"] / sr.hz
-        K = float(self.K_REBASE)
-        anchor, k0 = state["anchor"], state["k"]
-        changed = jnp.logical_and(dt0 != state["dt_last"], k0 > 0)
-        anchor = jnp.where(
-            changed,
-            self._wrap(anchor + state["dt_last"]
-                       * k0.astype(jnp.float32)), anchor)
-        k0 = jnp.where(changed, 0, k0)
-        a2 = self._wrap(anchor + dt0 * K)
-        k_end = k0 + block_len
-        reb = k_end >= self.K_REBASE
-        new_state = {"anchor": jnp.where(reb, a2, anchor),
-                     "k": jnp.where(reb, k_end - self.K_REBASE, k_end),
-                     "dt_last": dt0}
-        params = jnp.stack([anchor, k0.astype(jnp.float32), dt0,
-                            vals["depth"], a2])
-        return 2, Tremolo._epilogue_fn, params, new_state
-
-    @staticmethod
-    def _epilogue_fn(mix, t0, p):
-        # p (SMEM row): [anchor, k0, dt, depth, a2]
-        U = mix.shape[0]
-        K = float(Tremolo.K_REBASE)
-        t0f = jnp.asarray(t0).astype(jnp.float32)
-        iota = jax.lax.broadcasted_iota(jnp.int32, (U, 1), 0).astype(
-            jnp.float32)
-        ks = p[1] + (iota + t0f)
-        ph = jnp.where(ks < K, p[0] + p[2] * ks, p[4] + p[2] * (ks - K))
-        ph = ph - jnp.floor(ph)
-        pan = 0.5 + jnp.sin(ph * TAU) * (p[3] / 3.0)
-        # returned as per-channel (U, 1) columns: the kernel either
-        # stores each to its own (B, 1) ref (epi_split — lane-aligned,
-        # same free class as the mixdown store) or concatenates in-
-        # kernel for the single-ref A/B form
-        return mix * pan, mix * (1.0 - pan)
-
-    def process_block(self, state, ins, events, sr, block_len,
-                      const_ins=frozenset()):
+    def process_block(self, state, ins, events, sr, block_len):
         B = block_len
         dt = ins["rate"] / sr.hz  # [B]
         K = float(self.K_REBASE)
@@ -320,72 +273,10 @@ class Tremolo(Node):
                     jnp.where(reb, k_end - self.K_REBASE, k_end),
                     dt0)
 
-        # Layout/structure variants, interleaved-A/B-able on chip via
-        # OSCEN_TREMOLO_FORM (read at trace time; all forms are
-        # bit-identical — transposes move data, the pan math and its op
-        # order never change):
-        #   cond_bc  — lax.cond(same-rate) with the [B, 2] pan stack
-        #              computed inside each branch (round-3 default)
-        #   cond_cm  — cond returns the pan CHANNEL-MAJOR [2, B] (lane-
-        #              wide rows; the [B, 2] trailing-channel layout pads
-        #              2 lanes to 128, making every op and the cond
-        #              boundary buffer 64x wider than the data) and
-        #              transposes once after the cond
-        #   phase    — cond returns only the [B] phase; pan outside
-        #   phase_cm — phase cond + channel-major pan + one transpose
-        #   const    — no cond at all (rate is trace-time block-constant)
-        #   const_cm — const + channel-major + one transpose
-        # The transpose is logical: consumers that reduce (the steady
-        # checksum's full sum) fold it away; the render path materializes
-        # [B, 2] once at the host boundary where the copy is amortized.
-        import os as _os
-        form = _os.environ.get("OSCEN_TREMOLO_FORM", "")
-        if not form:
-            form = ("const" if _os.environ.get("OSCEN_TREMOLO_CONST",
-                                               "0") != "0" else "cond_bc")
-        cm = form.endswith("_cm")
-        base = form[:-3] if cm else form
-        if base == "const" and "rate" not in const_ins:
-            base = "cond"  # rate varies at trace time: need the cond
-        if base == "cond_bc":
-            base = "cond"
-
-        def pan_pair(x, phase, depth):
+        def pan_out(x, phase, depth):
             lfo = jnp.sin(phase * TAU)
             pan = 0.5 + lfo * (depth / 3.0)
-            return x * pan, x * (1.0 - pan)
-
-        def pan_out(x, phase, depth):
-            a, b = pan_pair(x, phase, depth)
-            return jnp.stack([a, b], axis=0 if cm else -1)
-
-        def finish(out, anchor, k, dt_last):
-            if cm:
-                out = out.T
-            return ({"anchor": anchor, "k": k, "dt_last": dt_last},
-                    {"output": out})
-
-        if base == "const":
-            # rate is block-constant at TRACE time: the only possible
-            # change is at the block boundary — apply tick's rate-change
-            # anchor rebase once, then the anchored closed form.  No
-            # lax.cond, no scan fallback in the compiled program.
-            # Bit-identical to tick: tick itself evaluates
-            # phase = wrap(anchor + dt·k).  (The bc form measured SLOWER
-            # than cond_bc in round 3 — 26.6 vs 24.0 us/block A/B — from
-            # degenerate-layout [B,1] copies when the phase math inlines
-            # into the main loop body.)
-            dt0 = dt[0]
-            anchor, k0 = state["anchor"], state["k"]
-            changed = jnp.logical_and(dt0 != state["dt_last"], k0 > 0)
-            anchor = jnp.where(
-                changed,
-                self._wrap(anchor + state["dt_last"]
-                           * k0.astype(jnp.float32)), anchor)
-            k0 = jnp.where(changed, 0, k0)
-            phase, anchor, k, dt_last = fast_from(anchor, k0, dt0)
-            return finish(pan_out(ins["input"], phase, ins["depth"]),
-                          anchor, k, dt_last)
+            return jnp.stack([x * pan, x * (1.0 - pan)], axis=-1)
 
         same = jnp.all(dt == state["dt_last"])
 
@@ -409,21 +300,9 @@ class Tremolo(Node):
                 step, (state["anchor"], state["k"], state["dt_last"]), dt)
             return phase, anchor, k, dt_last
 
-        if base == "phase":
-            # only the [B] phase crosses the cond; the pan (and its
-            # wider output array) fuses into the main block body
-            phase, anchor, k, dt_last = jax.lax.cond(
-                same,
-                lambda _: fast_from(state["anchor"], state["k"], dt[0]),
-                lambda _: slow_phase(), operand=None)
-            return finish(pan_out(ins["input"], phase, ins["depth"]),
-                          anchor, k, dt_last)
-
-        # base == "cond": the pan is computed INSIDE each branch — the
-        # output array is what crosses the cond boundary, while the [B]
-        # phase array stays fused into its branch (the TPT coefficient
-        # cond taught us cond-boundary arrays cost real per-block time;
-        # same ops, same order — bit-exact)
+        # the pan is computed INSIDE each branch: the output array is
+        # what crosses the cond boundary, while the [B] phase array stays
+        # fused into its branch (same ops, same order — bit-exact)
         def fast(_):
             phase, anchor, k, dt_last = fast_from(
                 state["anchor"], state["k"], dt[0])
@@ -437,7 +316,21 @@ class Tremolo(Node):
 
         out, anchor, k, dt_last = jax.lax.cond(same, fast, slow,
                                                operand=None)
-        return finish(out, anchor, k, dt_last)
+        return ({"anchor": anchor, "k": k, "dt_last": dt_last},
+                {"output": out})
+
+
+def fm_operator_step(carry, xs):
+    """One FM operator tick on lane rows (reference op order,
+    fm_operator.rs:57-77): ``dt`` is ``base_freq * ratio / sr``."""
+    from ..ops.fastmath import sin_turns
+    phase, prev = carry
+    dt, pm, fb, env, lvl = xs
+    feedback_mod = prev * fb
+    total_pm = pm + feedback_mod
+    out = sin_turns(phase + total_pm) * env * lvl
+    phase = phase + dt
+    return (phase - jnp.trunc(phase), out), out  # Rust .fract()
 
 
 class FmOperator(Node):
@@ -445,8 +338,9 @@ class FmOperator(Node):
     examples/fm-synth/src/nodes/fm_operator.rs).
 
     The self-feedback term (``prev_output * feedback``) is a one-sample
-    nonlinear recurrence; the block path uses the default per-sample scan
-    (a fused Pallas kernel is the fast path for voice-parallel synths).
+    nonlinear recurrence: the block path scans :func:`fm_operator_step`
+    (one lane-parallel kernel for all voices where a kernel route
+    exists).
     """
 
     INPUTS = (value("base_freq", 440.0), value("ratio", 1.0),
@@ -459,54 +353,41 @@ class FmOperator(Node):
 
     def tick(self, state, ins, sr):
         frequency = ins["base_freq"] * ins["ratio"]
-        feedback_mod = state["prev_output"] * ins["feedback"]
-        total_pm = ins["phase_mod"] + feedback_mod
-        from ..ops.fastmath import sin_turns
-        out = sin_turns(state["phase"] + total_pm) \
-            * ins["envelope"] * ins["level"]
-        phase = state["phase"] + frequency / sr.hz
-        phase = phase - jnp.trunc(phase)  # Rust .fract()
-        return ({"phase": phase, "prev_output": out}, {"output": out})
+        (phase, prev), out = fm_operator_step(
+            (state["phase"], state["prev_output"]),
+            (frequency / sr.hz, ins["phase_mod"], ins["feedback"],
+             ins["envelope"], ins["level"]))
+        return ({"phase": phase, "prev_output": prev}, {"output": out})
 
     def process_block(self, state, ins, events, sr, block_len):
-        """Scalar-instance block path: route through the same
-        exact-op-order Pallas kernel as the voice-batched path (with a
-        width-1 instance axis).  Without this a standalone FmOperator
-        fell to the default per-sample Node scan on TPU (~3.6 µs per
-        Mosaic scan iteration — the cliff class the round-5 twin_peaks
-        bench exposed for LP18)."""
+        """Scalar-instance block path: the same lane scan as the
+        voice-batched path, one lane wide."""
         from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
-        if not use:
+        if not pallas_mode()[0]:
             return super().process_block(state, ins, events, sr,
                                          block_len)
         st1 = {k: jnp.reshape(jnp.asarray(v), (1,))
                for k, v in state.items()}
         ins1 = {k: jnp.broadcast_to(jnp.asarray(v), (block_len,))[None]
                 for k, v in ins.items()}
-        out = self.process_block_batched(st1, ins1, events, sr, block_len)
-        if out is None:  # pragma: no cover - use implies a kernel path
-            return super().process_block(state, ins, events, sr,
-                                         block_len)
-        st2, outs = out
+        st2, outs = self.process_block_batched(st1, ins1, events, sr,
+                                               block_len)
         return ({k: jnp.reshape(v, ()) for k, v in st2.items()},
                 {k: v[0] for k, v in outs.items()})
 
     def process_block_batched(self, state, ins, events, sr, block_len):
-        """All voices through the exact-op-order Pallas kernel
-        (ops/pallas/fm.py); the default path is a per-voice 512-step
-        while-loop."""
+        """All voices through one lane-parallel kernel
+        (:func:`fm_operator_step`); without a kernel route the compiler
+        vmaps the per-sample scan instead."""
+        from ..ops.pallas.recurrence import lane_scan
         from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
-        if not use:
+        if not pallas_mode()[0]:
             return None
-        from ..ops.pallas.fm import fm_operator_scan
-
         dt = ins["base_freq"] * ins["ratio"] / sr.hz  # [C, B]
         tbv = lambda v: jnp.moveaxis(v, 0, 1)  # [C, B] -> [B, C]
-        y, phase, prev = fm_operator_scan(
-            state["phase"], state["prev_output"], tbv(dt),
-            tbv(ins["phase_mod"]), tbv(ins["feedback"]),
-            tbv(ins["envelope"]), tbv(ins["level"]), interpret=interp)
+        (phase, prev), y = lane_scan(
+            fm_operator_step, (state["phase"], state["prev_output"]),
+            (tbv(dt), tbv(ins["phase_mod"]), tbv(ins["feedback"]),
+             tbv(ins["envelope"]), tbv(ins["level"])))
         return ({"phase": phase, "prev_output": prev},
                 {"output": jnp.moveaxis(y, 0, 1)})

@@ -19,7 +19,6 @@ The per-sample ``tick`` paths mirror the reference exactly.
 from __future__ import annotations
 
 import math
-import os
 
 import jax
 import jax.numpy as jnp
@@ -395,11 +394,10 @@ class ElectricPianoVoice(Node):
     one node (the reference's ElectricPianoVoiceNode subgraph,
     electric_piano_voice.rs:362-403, as a single processor).
 
-    Event-free blocks on TPU run the **fused Pallas kernel**
-    (ops/pallas/additive.py): the whole per-sample voice algorithm in one
-    kernel, all voices in lanes, exact reference op order, no [V, B, H]
-    intermediates in HBM.  Event blocks and other platforms compose the
-    two nodes' implementations.
+    Event-free blocks on a GPU run the **fused Triton kernel**
+    (ops/pallas/additive.py): the whole voice algorithm in closed form
+    in one kernel, no [V, B, H] intermediates in device memory.  Event
+    blocks and the CPU compose the two nodes' implementations.
     """
 
     OUTPUTS = (stream("output"),)
@@ -441,79 +439,53 @@ class ElectricPianoVoice(Node):
                 {"output": out["output"]})
 
     def process_block_batched(self, state, ins, events, sr, block_len,
-                              fanin_eps=frozenset(), epilogue=None):
-        """All voices through ONE fused Pallas kernel (TPU, no events).
+                              fanin_eps=frozenset()):
+        """All voices through ONE fused kernel (no events this block).
 
         When the compiler marks ``output`` as fan-in-only (its sole
         consumers sum over all voices), the mixdown is fused into the
-        kernel and only the summed audio leaves VMEM.  ``epilogue``
-        (``(ep, C, fn, params)``, see block_mode stream-epilogue fusion)
-        additionally runs the mix's single consumer inside the kernel;
-        the stereo/etc result returns as ``__epi__<ep>``."""
-        from ..ops.pallas.additive import (_UNROLL, additive_voice_block,
-                                           epilogue_supported)
+        kernel and only partial sums of the mix leave it.  Blocks too
+        small for the compiled kernel to pay take the composed closed
+        forms; interpret mode (the CPU test route) runs the kernel at
+        any size."""
+        from ..ops.pallas.additive import kernel_pays, supported
         from ..ops.pallas.util import pallas_mode
         use, interp = pallas_mode()
-        if not use or block_len % _UNROLL:
+        num_voices = ins["frequency"].shape[0]
+        if not use or not supported(block_len) or not (
+                interp or kernel_pays(num_voices, block_len)):
             return None
         with_mix = "output" in fanin_eps
-        num_voices = ins["frequency"].shape[0]
-        if epilogue is not None and not (
-                with_mix and epilogue[0] == "output"
-                and epilogue_supported(num_voices)):
-            epilogue = None
         from ..graph import explain
-        if explain.active():
-            from ..ops.pallas.additive import _kernel_version
-            explain.note(kernel=f"additive_voice_{_kernel_version()}",
-                         fanin_mixdown_fused=with_mix,
-                         stream_epilogue_fused=epilogue is not None)
+        explain.note(kernel="additive_voice", fanin_mixdown_fused=with_mix)
+        return self.kernel_block(state, ins, sr, block_len, with_mix,
+                                 interp)
 
+    def kernel_block(self, state, ins, sr, block_len, with_mix,
+                     interpret=False):
+        """One steady block of all voices through the fused kernel,
+        whatever the size (``process_block_batched`` decides when)."""
+        from ..ops.pallas.additive import additive_voice_block
         bank = state["bank"]
         amp = state["amp"]
         freq = ins["frequency"][:, 0]  # [C] (block-constant, no events)
         changed = jnp.logical_and(
             freq > 0.0, jnp.abs(bank["last_frequency"] - freq) >= 0.01)
         ch = changed[:, None]
-        if os.environ.get("OSCEN_EP_MULCOND", "0") == "1":
-            # MEASURED SLOWER, ships default-OFF (tools/glueabl2.py,
-            # interleaved A/B at 256v B=1024 on a v5e: median +0.87
-            # us/block WITH the cond): skipping the [C, H] multiplier
-            # sin/cos sweep in steady blocks via a runtime
-            # any(changed) cond loses more to the cond boundary
-            # (unfused [C, H] operand copies, two compiled branches)
-            # than the 16k transcendentals cost — XLA fuses the sweep
-            # into the surrounding selects nearly for free.
-            def _recompute(_):
-                n_mre, n_mim = jax.vmap(
-                    lambda f: OscillatorBank._multipliers(f, sr.hz))(freq)
-                return (jnp.where(ch, n_mre, bank["mul_re"]),
-                        jnp.where(ch, n_mim, bank["mul_im"]))
-
-            mre, mim = jax.lax.cond(
-                jnp.any(changed), _recompute,
-                lambda _: (bank["mul_re"], bank["mul_im"]), None)
-        else:
-            n_mre, n_mim = jax.vmap(
-                lambda f: OscillatorBank._multipliers(f, sr.hz))(freq)
-            mre = jnp.where(ch, n_mre, bank["mul_re"])
-            mim = jnp.where(ch, n_mim, bank["mul_im"])
+        n_mre, n_mim = jax.vmap(
+            lambda f: OscillatorBank._multipliers(f, sr.hz))(freq)
+        mre = jnp.where(ch, n_mre, bank["mul_re"])
+        mim = jnp.where(ch, n_mim, bank["mul_im"])
         ore = jnp.where(ch, 1.0, bank["osc_re"])
         oim = jnp.where(ch, 0.0, bank["osc_im"])
         last = jnp.where(changed, freq, bank["last_frequency"])
 
         mult = jnp.where(amp["released"][:, None], amp["release"],
                          amp["decay"])
-        epi_kw = {}
-        if epilogue is not None:
-            _, epi_c, epi_fn, epi_params = epilogue
-            epi_kw = dict(epi_fn=epi_fn, epi_c=epi_c,
-                          epi_params=epi_params)
         y, or_o, oi_o, cur_o, tgt_o, step_o = additive_voice_block(
             ore.T, oim.T, mre.T, mim.T,
             amp["current"].T, amp["target"].T, mult.T,
-            amp["step"], block_len, with_mix=with_mix,
-            interpret=interp, **epi_kw)
+            amp["step"], block_len, with_mix=with_mix, interpret=interpret)
         new_state = {
             "bank": {**bank, "osc_re": or_o.T, "osc_im": oi_o.T,
                      "mul_re": mre, "mul_im": mim,
@@ -521,9 +493,6 @@ class ElectricPianoVoice(Node):
             "amp": {**amp, "current": cur_o.T, "target": tgt_o.T,
                     "step": step_o.astype(jnp.int32)},
         }
-        if epilogue is not None:
-            # y [B, C]: the consumer's output, computed in-kernel
-            return new_state, {"__epi__output": y}
         if with_mix:
             return new_state, {"__fanin__output": y}  # [B], pre-summed
         return new_state, {"output": y.T}

@@ -241,14 +241,6 @@ class AdsrEnvelope(Node):
         return out_state, {"output": level}
 
 
-    # NOTE: a per-sample ADSR Pallas kernel exists (ops/pallas/adsr.py,
-    # parity-tested against tick) but is NOT wired in as a
-    # process_block_batched hook: measured on a v5e it benches ~14.5 µs
-    # per 1024-sample block while the closed forms below cost ~5 µs —
-    # wiring it regressed the 256-voice poly synth 476× → 343×.  It is
-    # kept as the building block for a future fully-fused voice kernel
-    # (where the envelope shares a sample loop with the oscillator ops).
-
     # ------------------------------------------------------------------ #
     # block mode: segment-wise closed forms (SURVEY §5.7 — "ADSR =
     # segment-wise closed-form exponentials between gate events")

@@ -1,6 +1,6 @@
 """Filters.
 
-TPU-native counterparts of the reference filters:
+Counterparts of the reference filters:
 
 - :class:`TptFilter` — Zavalishin topology-preserving SVF lowpass
   (/root/reference/oscen-lib/src/filters/tpt/mod.rs).
@@ -11,15 +11,15 @@ TPU-native counterparts of the reference filters:
 
 ``tick`` mirrors the per-sample math exactly (including the
 recompute-on-change / every-32-frames coefficient cadences, carried in
-state).  ``process_block`` reformulates the 2-state linear recurrences as
-associative scans over 2x2 affine maps — parallel in time, exact up to f32
-reassociation.
+state).  ``process_block`` vectorizes the coefficient cadences over the
+block and runs the state recurrences sequential-exact through one step
+function per family (``tpt_step``, ``biquad_step``, ``lp18_step``), shared
+with the lane-parallel kernel.
 """
 
 from __future__ import annotations
 
 import math
-import os
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +27,8 @@ import numpy as np
 
 from ..core.types import SampleRate, stream, value
 from ..graph.node import Node
+from ..ops.pallas.recurrence import lane_scan
+
 PI = math.pi
 F32_EPS = float(np.finfo(np.float32).eps)
 DENORMAL_THRESHOLD = 1e-15
@@ -41,6 +43,43 @@ def _tpt_coefficients(sr_hz: float, cutoff, q):
     inv_q = 1.0 / q
     h = 1.0 / (1.0 + inv_q * f + f * f)
     return h, f, inv_q, f + inv_q  # h, g, r, k
+
+
+def tpt_step(carry, xs):
+    """One TPT SVF lowpass tick on lane rows (reference op order,
+    tpt/mod.rs:108-123)."""
+    z0, z1 = carry
+    x, h, g, k = xs
+    high = (x - z0 * k - z1) * h
+    band = high * g + z0
+    low = band * g + z1
+    return (high * g + band, band * g + low), low
+
+
+def biquad_step(carry, xs):
+    """One DFII-t biquad tick with the reference's denormal snaps on the
+    state taps (iir_lowpass/mod.rs:109-132)."""
+    v1, v2 = carry
+    x, b0, b1, b2, a1, a2 = xs
+    out = b0 * x + v1
+    v1 = b1 * x - a1 * out + v2
+    v2 = b2 * x - a2 * out
+    v1 = jnp.where(jnp.abs(v1) < DENORMAL_THRESHOLD, 0.0, v1)
+    v2 = jnp.where(jnp.abs(v2) < DENORMAL_THRESHOLD, 0.0, v2)
+    return (v1, v2), out
+
+
+def lp18_step(carry, xs):
+    """One LP18 tick: 3 poles, tanh-saturated first pole
+    (nih-twin-peaks/src/lp18_filter.rs)."""
+    z0, z1, z2 = carry
+    x, g, h = xs
+    hp = (x - h * z0 - z1 - z2) / (1.0 + g)
+    bp1 = g * hp + z0
+    z0n = jnp.tanh(bp1)
+    bp2 = g * bp1 + z1
+    lp = g * bp2 + z2
+    return (z0n, bp2, lp), lp
 
 
 class TptFilter(Node):
@@ -130,34 +169,9 @@ class TptFilter(Node):
         z0c = state["z0"] + jnp.zeros_like(x[0])
         z1c = state["z1"] + jnp.zeros_like(x[0])
 
-        # Sequential-exact integration (the reference's per-sample op order,
-        # tpt/mod.rs:108-123): bit-parity with tick and therefore
-        # block-size invariant.  TPU runs the voice-parallel Pallas scan;
-        # elsewhere a lax.scan replays the identical ops.
-        if jax.default_backend() == "tpu":
-            from ..ops.pallas.iir import tpt_svf_scan
-            if self.channels > 1:
-                hc = jnp.broadcast_to(h[:, None], (block_len, self.channels))
-                gc = jnp.broadcast_to(g[:, None], (block_len, self.channels))
-                kc = jnp.broadcast_to(k[:, None], (block_len, self.channels))
-                y, z0n, z1n = tpt_svf_scan(x, hc, gc, kc, z0c, z1c)
-            else:
-                y, z0n, z1n = tpt_svf_scan(
-                    x[:, None], h[:, None], g[:, None], k[:, None],
-                    jnp.reshape(z0c, (1,)), jnp.reshape(z1c, (1,)))
-                y = y[:, 0]
-                z0n = z0n[0]
-                z1n = z1n[0]
-        else:
-            def step(carry, xs):
-                z0, z1 = carry
-                xt, ht, gt, kt = xs
-                high = (xt - z0 * kt - z1) * ht
-                band = high * gt + z0
-                low = band * gt + z1
-                return (high * gt + band, band * gt + low), low
-
-            (z0n, z1n), y = jax.lax.scan(step, (z0c, z1c), (x, h, g, k))
+        # Sequential-exact integration (the reference's per-sample op order):
+        # bit-parity with tick and therefore block-size invariant.
+        (z0n, z1n), y = lane_scan(tpt_step, (z0c, z1c), (x, h, g, k))
 
         new_state = {**{k2: (v[-1] if k2 in ("current_cutoff", "current_q",
                                              "h", "g", "r", "k") else v)
@@ -167,15 +181,14 @@ class TptFilter(Node):
 
     def process_block_batched(self, state, ins, events, sr, block_len,
                               const_ins=frozenset()):
-        """Voice-batched block path: ONE Pallas kernel over all instances
+        """Voice-batched block path: ONE kernel over all instances
         (sequential-in-time, voices in lanes — exact reference op order,
-        ops/pallas/iir.py).  Only used by the block-mode compiler on TPU
-        for mono node arrays; returns None to fall back otherwise."""
+        :func:`tpt_step`).  Used where a kernel route exists, for mono
+        node arrays; returns None to fall back otherwise."""
         from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
+        use, _ = pallas_mode()
         if self.channels != 1 or not use:
             return None
-        from ..ops.pallas.iir import tpt_svf_scan
         B = block_len
 
         def coefs(st, i):
@@ -191,13 +204,8 @@ class TptFilter(Node):
         # params, or a settled filter envelope) — one [C] coefficient set
         # instead of a [C, B] transcendental sweep.  The per-sample path
         # remains for modulated cutoffs, selected at runtime.  Each
-        # branch makes its OWN pallas call: the kernel takes [V] row
-        # coefficients on the fast branch, so no [C, B] coefficient
-        # arrays cross the cond boundary — returning the coefficients
-        # from the cond and calling one sweep-shaped kernel outside
-        # materialized 6 [C, B] planes + transposes per block and
-        # measured ~5 µs of pure overhead even when the fast branch ran
-        # (tools/pivotabl.py; pivot: 65 → ~58 µs/block).
+        # branch makes its OWN kernel call, so no [C, B] coefficient
+        # arrays cross the cond boundary on the fast branch.
         param_keys = ("cutoff", "q", "f_mod")
         # trace-time constant params (const staging, [1]-shaped graph
         # inputs) need no runtime check and no [C,B] form at all — with
@@ -215,9 +223,9 @@ class TptFilter(Node):
 
         def fast(_):
             st1 = self._apply_parameter_updates(state, row0, sr.hz)
-            y, z0, z1 = tpt_svf_scan(
-                x, st1["h"], st1["g"], st1["k"],
-                state["z0"], state["z1"], interpret=interp)
+            (z0, z1), y = lane_scan(
+                tpt_step, (state["z0"], state["z1"]),
+                (x, st1["h"][None], st1["g"][None], st1["k"][None]))
             return (y, z0, z1) + tuple(st1[kkey] for kkey in fin_keys)
 
         def slow(_):
@@ -227,26 +235,18 @@ class TptFilter(Node):
                            if kkey in const_ins else ins[kkey])
                     for kkey in param_keys}
             st1 = jax.vmap(coefs)(state, insl)
-            y, z0, z1 = tpt_svf_scan(
-                x, jnp.moveaxis(st1["h"], 0, 1),
-                jnp.moveaxis(st1["g"], 0, 1),
-                jnp.moveaxis(st1["k"], 0, 1),
-                state["z0"], state["z1"], interpret=interp)
+            (z0, z1), y = lane_scan(
+                tpt_step, (state["z0"], state["z1"]),
+                (x, jnp.moveaxis(st1["h"], 0, 1),
+                 jnp.moveaxis(st1["g"], 0, 1),
+                 jnp.moveaxis(st1["k"], 0, 1)))
             return (y, z0, z1) + tuple(st1[kkey][:, -1]
                                        for kkey in fin_keys)
 
-        # OSCEN_TPT_COEF: 'cond' (default — runtime constant check picks
-        # the hoisted path), 'slow' (always per-sample sweep), 'fast'
-        # (always hoisted — ONLY valid for block-constant params; for
-        # measurement/ablation use)
-        _mode = os.environ.get("OSCEN_TPT_COEF", "cond")
         from ..graph import explain
-        if _mode == "slow":
-            explain.note(kernel="tpt_svf_scan", coef_path="sweep")
-            out = slow(None)
-        elif _mode == "fast" or not rt_keys:
+        if not rt_keys:
             explain.note(kernel="tpt_svf_scan", coef_path="hoisted",
-                         const_params=not rt_keys)
+                         const_params=True)
             out = fast(None)
         else:
             explain.note(
@@ -347,31 +347,10 @@ class IirLowpass(Node):
         x = ins["input"]
         x = jnp.where(jnp.abs(x) < DENORMAL_THRESHOLD, 0.0, x)
         # Sequential-exact DFII-t (op-order parity with tick, including the
-        # denormal snaps on the state taps) — block-size invariant.  TPU
-        # uses the voice-parallel Pallas scan (hardware flushes denormals).
-        if jax.default_backend() == "tpu":
-            from ..ops.pallas.iir import biquad_scan
-            y, v1n, v2n = biquad_scan(
-                x[:, None], b0[:, None], b1[:, None], b2[:, None],
-                a1[:, None], a2[:, None],
-                jnp.reshape(state["v1"], (1,)),
-                jnp.reshape(state["v2"], (1,)))
-            out = y[:, 0]
-            v1n = v1n[0]
-            v2n = v2n[0]
-        else:
-            def step(carry, xs):
-                v1, v2 = carry
-                xt, c0, c1, c2, d1, d2 = xs
-                o = c0 * xt + v1
-                v1 = c1 * xt - d1 * o + v2
-                v2 = c2 * xt - d2 * o
-                v1 = jnp.where(jnp.abs(v1) < DENORMAL_THRESHOLD, 0.0, v1)
-                v2 = jnp.where(jnp.abs(v2) < DENORMAL_THRESHOLD, 0.0, v2)
-                return (v1, v2), o
-
-            (v1n, v2n), out = jax.lax.scan(
-                step, (state["v1"], state["v2"]), (x, b0, b1, b2, a1, a2))
+        # denormal snaps on the state taps) — block-size invariant.
+        (v1n, v2n), out = lane_scan(
+            biquad_step, (state["v1"], state["v2"]),
+            (x, b0, b1, b2, a1, a2))
         counter_next = (state["frame_counter"] + block_len) \
             % self.FRAMES_PER_UPDATE
         return ({"b0": b0[-1], "b1": b1[-1], "b2": b2[-1],
@@ -439,12 +418,10 @@ class LP18Filter(Node):
     def process_block(self, state, ins, events, sr, block_len):
         """Sequential-exact block path: the tanh first pole makes this a
         NONLINEAR recurrence (no associative-scan form exists), so the
-        block runs the voice-parallel Pallas kernel on TPU (exact tick
-        op order — nih-twin-peaks/src/lp18_filter.rs) and an identical
-        lax.scan elsewhere.  Without this the default per-sample Node
-        scan ran the twin-peaks graph at 1.5× RT on TPU (~3.6 µs per
-        scan iteration through Mosaic); the kernel restores the
-        1000×-class.  Coefficients replay the recompute-on-change
+        block scans :func:`lp18_step` (exact tick op order —
+        nih-twin-peaks/src/lp18_filter.rs) through
+        :func:`~oscen_tpu.ops.pallas.recurrence.lane_scan`: the Triton
+        kernel on a GPU, ``lax.scan`` on the CPU.  Coefficients replay the recompute-on-change
         cadence vectorized against the carried values — exact for the
         same pure-recompute reason as TptFilter.process_block."""
         B = block_len
@@ -461,30 +438,9 @@ class LP18Filter(Node):
         x = ins["input"]
         z = state["z"]
         from ..graph import explain
-        from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
-        explain.note(kernel="lp18_scan" if use else "lax.scan",
-                     lanes=1, sequential_exact=True)
-        if use:
-            from ..ops.pallas.iir import lp18_scan
-            y, zo = lp18_scan(x[:, None], g[:, None], h[:, None],
-                              z[:, None], interpret=interp)
-            y = y[:, 0]
-            zn = zo[:, 0]
-        else:
-            def step(carry, xs):
-                z0, z1, z2 = carry
-                xt, gt, ht = xs
-                hp = (xt - ht * z0 - z1 - z2) / (1.0 + gt)
-                bp1 = gt * hp + z0
-                z0n = jnp.tanh(bp1)
-                bp2 = gt * bp1 + z1
-                lp = gt * bp2 + z2
-                return (z0n, bp2, lp), lp
-
-            (z0n, z1n, z2n), y = jax.lax.scan(
-                step, (z[0], z[1], z[2]), (x, g, h))
-            zn = jnp.stack([z0n, z1n, z2n])
+        explain.note(kernel="lp18_scan", lanes=1, sequential_exact=True)
+        zs, y = lane_scan(lp18_step, (z[0], z[1], z[2]), (x, g, h))
+        zn = jnp.stack(zs)
         return ({"z": zn, "g": g[-1], "h": h[-1],
                  "last_cutoff": jnp.where(cut_changed, cutoff,
                                           state["last_cutoff"])[-1],
@@ -502,16 +458,14 @@ class DualLP18Diff(Node):
     difference (the movable resonant band,
     reference examples/nih-twin-peaks/src/lib.rs:15-48).
 
-    The sequential-exact LP18 kernel pays the full per-sample serial
-    chain per LAUNCH, not per lane — two independent ``LP18Filter``
-    nodes each burn a 1024-tick chain padded from 1 to 128 lanes, while
-    this node runs both filters in adjacent lanes of one launch for the
-    cost of one (measured 32.9 -> 17.2 us/block at B=1024,
-    tools/lp18abl.py).  All kernel ops are elementwise over lanes and
-    both builds pad the lane axis to 128, so on the kernel path the
-    output is bit-identical to the two-node composition; the CPU
-    lax.scan fallback matches to the last ulp only (XLA CPU tanh emits
-    different code for vector vs scalar shapes).  Pinned by
+    The sequential-exact LP18 scan pays the full per-sample serial chain
+    per LAUNCH, not per lane — two independent ``LP18Filter`` nodes each
+    run a B-step chain one lane wide, while this node runs both filters
+    in adjacent lanes of one launch for the cost of one.  All kernel ops
+    are elementwise over lanes, so on the kernel path the output is
+    bit-identical to the two-node composition; the CPU ``lax.scan``
+    matches to the last ulp only (XLA CPU tanh emits different code for
+    vector vs scalar shapes).  Pinned by
     tests/test_models_aux.py::test_twin_peaks_fused_matches_two_node.
     """
 
@@ -587,28 +541,10 @@ class DualLP18Diff(Node):
         x = jnp.broadcast_to(ins["input"][:, None], (B, 2))
         z = state["z"]
         from ..graph import explain
-        from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
-        explain.note(kernel="lp18_scan" if use else "lax.scan",
-                     lanes=2, fused_dual_filter=True,
+        explain.note(kernel="lp18_scan", lanes=2, fused_dual_filter=True,
                      sequential_exact=True)
-        if use:
-            from ..ops.pallas.iir import lp18_scan
-            y, zn = lp18_scan(x, g, h, z, interpret=interp)
-        else:
-            def step(carry, xs):
-                z0, z1, z2 = carry
-                xt, gt, ht = xs
-                hp = (xt - ht * z0 - z1 - z2) / (1.0 + gt)
-                bp1 = gt * hp + z0
-                z0n = jnp.tanh(bp1)
-                bp2 = gt * bp1 + z1
-                lp = gt * bp2 + z2
-                return (z0n, bp2, lp), lp
-
-            (z0n, z1n, z2n), y = jax.lax.scan(
-                step, (z[0], z[1], z[2]), (x, g, h))
-            zn = jnp.stack([z0n, z1n, z2n])
+        zs, y = lane_scan(lp18_step, (z[0], z[1], z[2]), (x, g, h))
+        zn = jnp.stack(zs)
         return ({"z": zn, "g": g[-1], "h": h[-1],
                  "last_cutoff": jnp.where(cut_changed, cutoff,
                                           state["last_cutoff"])[-1],

@@ -1,6 +1,6 @@
 """Oscillators.
 
-TPU-native counterparts of the reference oscillators
+Counterparts of the reference oscillators
 (/root/reference/oscen-lib/src/oscillators/mod.rs).  ``tick`` mirrors the
 per-sample reference math exactly (op-order parity for the sample-mode
 compiler); ``process_block`` vectorizes the time axis — phase accumulation
@@ -229,22 +229,20 @@ class PolyBlepOscillator(Node):
         return ({"phase": carry}, {"output": val * ins["amplitude"]})
 
     def process_block_batched(self, state, ins, events, sr, block_len):
-        """All voices at once with EXACT per-sample phase wrapping: a tiny
-        sequential Pallas kernel accumulates the phases (bit-parity with
+        """All voices at once with EXACT per-sample phase wrapping: one
+        lane-parallel kernel accumulates the phases (bit-parity with
         tick; the prefix-sum form drifts ~1e-3 RMS/s), then the polyBLEP
         synthesis runs time-parallel on the exact phases."""
         from ..ops.pallas.util import pallas_mode
-        use, interp = pallas_mode()
+        use, _ = pallas_mode()
         if not use:
             return None
-        from ..ops.pallas.phase import phase_scan
 
         frequency = jnp.maximum(
             ins["frequency"] * (1.0 + ins["frequency_mod"]), 0.0)  # [C,B]
         fps = frequency / max(sr.hz, F32_EPS)
-        before, carry = phase_scan(state["phase"],
-                                   jnp.moveaxis(fps, 0, 1),
-                                   interpret=interp)
+        before, carry = exact_wrapped_phase(state["phase"],
+                                            jnp.moveaxis(fps, 0, 1))
         before = jnp.moveaxis(before, 0, 1)  # [C, B]
         pulse_width = jnp.clip(ins["pulse_width"], 0.0001, 0.9999)
         phase = _wrap_phase(before + ins["phase_mod"])

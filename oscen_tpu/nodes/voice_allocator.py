@@ -16,8 +16,8 @@ from ..core.events import EventInstance, NoteOffEvent, NoteOnEvent
 from ..core.types import event
 from ..graph.node import HostNode
 
-MAX_VOICES = 4096  # reference caps at 24 (voice_allocator.rs:5); the TPU
-# build raises the cap — voices are the batch axis (256+ per chip).
+MAX_VOICES = 4096  # reference caps at 24 (voice_allocator.rs:5); this
+# build raises the cap — voices are the batch axis (256+ per device).
 
 
 class _VoiceState:

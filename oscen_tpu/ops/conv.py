@@ -6,12 +6,12 @@ decomposition (direct head + 32-sample FFT stage + 512-sample FFT stage,
 *per sample*: each FFT stage adds its block size of latency, so the head
 must be covered in the time domain.
 
-On TPU the engine consumes whole blocks, so the tiering is unnecessary:
+Here the engine consumes whole blocks, so the tiering is unnecessary:
 a **uniform-partition frequency-domain delay line at the graph block size**
 applies partition 0 (lags ``[0, B)``) to the *current* input block —
 sample-exact full convolution with zero latency (the same invariant the
 Gardner stack sums to, convolution/mod.rs:10-17), as batched rFFT
-multiply-accumulates that map straight onto the MXU/VPU.
+multiply-accumulates.
 
 IR capacity is fixed at construction (shorter IRs zero-pad), so hot-swaps
 never change shapes — the "no retrace in the render loop" analogue of the

@@ -3,9 +3,7 @@
 :func:`sin_turns` is the framework's FM-operator sine.  The FM operator's
 self-feedback makes the voice a per-sample nonlinear recurrence whose
 throughput is bound by the *latency* of the dependent sine chain, not by
-VPU width — swapping the library ``sin`` for this 9-op polynomial took
-the fused 3-operator chain kernel from 93.6 to 44.6 µs per 1024-sample
-block at 256 voices (measured on v5e).
+vector width — hence a short polynomial instead of the library ``sin``.
 
 Because feedback FM amplifies any per-sample difference chaotically, the
 same polynomial is used on EVERY path (per-sample ``tick``, the Pallas
@@ -44,7 +42,12 @@ def sin_turns(x):
     definition; reference parity is inherently chaotic-sensitive for
     deep feedback regardless of which correctly-rounded sine is used.
     """
-    w = x - jnp.round(x)
+    # w = x - round(x) in [-1/2, 1/2], from trunc and two selects (every
+    # step exact in f32; only exact half-turn ties may land on the other
+    # sign, where the sine is ~0 either way) — elementwise ops that every
+    # path, the Triton kernels included, lowers identically
+    w = x - jnp.trunc(x)
+    w = jnp.where(w > 0.5, w - 1.0, jnp.where(w < -0.5, w + 1.0, w))
     u = w * w
     acc = jnp.float32(SIN_TURNS_COEFFS[4])
     for k in (3, 2, 1, 0):

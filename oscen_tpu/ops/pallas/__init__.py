@@ -1,1 +1,2 @@
-"""Pallas TPU kernels."""
+"""Pallas kernels (Triton route): the lane-parallel recurrence scan and
+the fused additive voice."""

@@ -1,632 +1,258 @@
-"""Fused Pallas kernel for the electric-piano additive voice.
+"""Fused Triton kernel for the electric-piano additive voice.
 
-Runs the reference voice algorithm (AmplitudeSource →
-OscillatorBank, electric_piano_voice.rs) *inside one kernel*, all voices
-in VPU lanes and all 32 harmonics in sublanes, with no [V, B, H]
-intermediates ever touching HBM.
+Runs the reference voice algorithm (AmplitudeSource → OscillatorBank,
+electric_piano_voice.rs) for all voices and all 32 harmonics inside one
+kernel, so no ``[V, B, H]`` plane ever reaches device memory; with the
+fan-in mixdown fused, only per-program partial sums of the ``[B]`` mix
+leave it.
 
-Steady-state only (no gate events, constant frequency within the block) —
-the compiler falls back to the segmented closed forms for event blocks.
+Steady-state blocks only (no gate events, constant frequency within the
+block): event blocks take the segmented closed forms of the two nodes.
 
-The kernel evaluates the voice in closed form over *subgroups* of up to
-SUB=32 samples (v2 of this kernel; v1 replayed the exact per-sample op
-order and measured 26.5 µs per 1024-sample block at 256 voices — this
-form measures ~20.6 µs, at the VPU roofline):
+The grid covers voice tiles × time chunks, and no state passes between
+programs.  Each chunk starts from its entry state in closed form, built by
+XLA before the launch:
 
-- **rotation**: within a subgroup, sample j's oscillator value comes from
-  the subgroup-entry state via precomputed ``m^(j+1)`` planes
-  (``im_j = re0·Im(m^{j+1}) + im0·Re(m^{j+1})``, 2 ops) instead of
-  iterating the 6-op complex multiply; the carry advances once per
-  subgroup by ``m^SUB``.  The ``m^j`` planes are built once per block.
-- **envelope**: the per-tick blend telescopes to
-  ``amp_k = target + (C0 - target)·P_k`` with ``P_k = Π(1 - i/64)``
-  (the same closed form the non-fused AmplitudeSource uses); ``P`` is
-  maintained as a per-voice row by its recurrence, and the at-most-one
-  cycle wrap per subgroup (SUB ≤ 65) switches ``(target, diff)`` planes
-  with row-masked selects.
+- **rotation**: the oscillator at chunk start ``t0`` is ``z0·m^t0``.
+  Inside a chunk the kernel walks subgroups of ``SUB`` samples; sample
+  ``j`` of a subgroup is ``Im(z·m^(j+1))`` from a ``[SUB, H, TV]`` tile of
+  powers built once per program, and the subgroup carry advances by
+  ``m^SUB``.
+- **envelope**: the per-tick blend telescopes to ``amp_k = T + E·c_k``,
+  where ``(T, E)`` change only at the cycle wrap (``E ← T(1-m)``,
+  ``T ← T·m``) and ``c_k`` is a per-voice blend coefficient.  The
+  ``[B, V]`` rows of ``c_k`` and of the running wrap count are computed by
+  XLA; a subgroup (``SUB ≤ 64`` < the 65-tick cycle) sees at most one wrap.
 
-Numerics: bounded ~2.6e-4 relative output deviation from the exact
-per-sample iteration (anchored per block/cycle — deviations do NOT
-accumulate across blocks; measured 4.9e-4 max abs over a 1 s chained
-render at unit-scale output).  The reference's own per-sample f32
-rotation drifts comparably against exact math.
-
-Layout: state planes ``[H, V]`` (harmonics in sublanes, voices in
-lanes); the per-voice step counter is a ``[1, V]`` row.  Output
-``[B, V]``.
+Numerics: the closed forms reassociate the reference's per-sample f32
+rotation and blend, so the output deviates from the per-sample path by
+at most about 5e-4 absolute at unit-scale output (the reference's own f32
+rotation drifts comparably against exact math).
 """
 
 from __future__ import annotations
 
 import functools
-import os
+import math
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
+from .recurrence import next_pow2
 from .util import pick_unroll
 
-INTERP = 64.0
+INTERP = 64
+CYCLE = INTERP + 1
 
-_UNROLL = 8  # minimum block-length granularity for the fused kernel
+SUB = 32     # samples per subgroup (one wrap at most: SUB < CYCLE)
+TV = 4       # voices per program
+CHUNK = 256  # samples per program
+NUM_WARPS = 4
 
-# v4 (default): v3 with the row pre-pass driven by the closed-form wrap
-# tick (bit-identical to v3; fewer row ops, serial chain cut to
-# mul+select — see _kernel_v4).  With U=128/SUB=64 measures ~18-20
-# µs/block at 256 voices / B=1024, chip-state dependent (v3 at the
-# round-2 defaults: ~19.4-21.9).
-# Rejected via tools/kabl*.py chip ablations (round 3): whole-block row
-# tables gathered by one-hot MXU matmuls (dots cheap at +1.7 µs but the
-# per-tick [1,V] scratch reads cost MORE than the sequential recurrence
-# they replace — the [1,V]->[H,V] broadcast pattern dominates either
-# way); bf16 elementwise math (2.2x SLOWER — Mosaic does not pack bf16
-# on the VPU); bf16 products + block-diag ones MXU reduction (similar);
-# h-major accumulation with external rotation tables (kabl5: +7 µs —
-# the ~2 MB/block table DMA swamps the saved reduce); [SUB,V] plane-rows
-# via pltpu.roll segmented cumprod + per-tick slices (kabl6 v5: +4.8 µs
-# — slice/broadcast consumption costs more than the serial rows).
-# v3: the round-2/3 kernel (per-tick 2-FMA amp, sequential row ops).
-# v2: the round-2 kernel (per-tick plane selects + sequential row ops).
-# parity: the exact-op-order kernel — replays the reference's per-sample
-#   schedule (envelope tick then rotation, electric_piano_voice.rs
-#   tick order) with no closed-form subgroups.  ~30% slower than v4
-#   (the round-1 v1 measured 26.5 us/block at 256v/B=1024) but carries
-#   the 1e-6-class tolerance the sample path has; selectable when the
-#   headline tolerance matters more than the headline number.
+# The compiled kernel costs about 50 µs per block whatever the voice
+# count, while XLA's closed form grows with voices × samples; on an H100
+# the two meet near 2^16 voice-samples per block (64 voices at B=1024,
+# 16 at B=4096).
+MIN_VOICE_SAMPLES = 1 << 16
+
+# P[j] = prod_{i=1..j} (1 - i/64): the blend coefficient j ticks into a
+# cycle (P[64] = P[65] = 0: the last interpolation tick and the settle
+# tick both land on the target)
+_P_EXT = np.cumprod(np.concatenate(
+    [[1.0], 1.0 - np.arange(1, CYCLE + 1) / INTERP])).astype(np.float32)
 
 
-def _kernel_version() -> str:
-    """Resolved at trace time (each version is a distinct jit key)."""
-    return os.environ.get("OSCEN_ADDITIVE_KERNEL", "v4")
+def supported(block_len: int) -> bool:
+    """The kernel needs whole subgroups of at least 8 samples."""
+    return block_len % 8 == 0
 
 
-def _kernel(U, SUB, with_mix, or_ref, oi_ref, mr_ref, mi_ref, cur_ref,
-            tgt_ref, mult_ref, step_ref, y_ref, or_o, oi_o, cur_o, tgt_o,
-            step_o):
-    # U = fori unroll (samples per loop body); SUB = closed-form subgroup
-    # (rotation anchor + at-most-one envelope-cycle wrap; SUB <= 64).
-    mr = mr_ref[:]
-    mi = mi_ref[:]
-    mult = mult_ref[:]
-    B = y_ref.shape[0]
+def kernel_pays(num_voices: int, block_len: int) -> bool:
+    """Whether the compiled kernel beats XLA's closed form at this size."""
+    return num_voices * block_len >= MIN_VOICE_SAMPLES
 
-    # m^j planes, j = 1..SUB (built once per block; the *3 copies fold the
-    # reference's output gain into the rotation tables)
-    mjr = [mr]
-    mji = [mi]
-    for _ in range(SUB - 1):
-        pr, pi = mjr[-1], mji[-1]
-        mjr.append(pr * mr - pi * mi)
-        mji.append(pr * mi + pi * mr)
-    msr, msi = mjr[SUB - 1], mji[SUB - 1]
-    mji3 = [m * 3.0 for m in mji]
-    mjr3 = [m * 3.0 for m in mjr]
 
-    def subgroup(carry):
-        zr, zi, tgt, D, p, s = carry
-        tgt2 = tgt * mult   # next cycle's target, if a wrap occurs
-        D2 = tgt - tgt2
-        # row pre-pass: P recurrence + wrap masks for every tick
-        ps = []
-        ws = []
-        wrapped = jnp.zeros_like(s, dtype=jnp.bool_)
-        for _ in range(SUB):
-            wrap = s == 0.0
-            wrapped = jnp.logical_or(wrapped, wrap)
-            p = jnp.where(wrap, 63.0 / 64.0,
-                          p * (1.0 - (s + 1.0) / INTERP))
-            ps.append(p)
-            ws.append(wrapped)
-            s = jnp.where(s < INTERP, s + 1.0, 0.0)
-        rows = []
-        for j in range(SUB):
-            tgtE = jnp.where(ws[j], tgt2, tgt)
-            DE = jnp.where(ws[j], D2, D)
-            amp = tgtE + DE * ps[j]
-            im = zr * mji3[j] + zi * mjr3[j]
-            rows.append(jnp.sum(im * amp, axis=0, keepdims=True))
-            last_amp = amp
-        zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
-        tgt = jnp.where(ws[-1], tgt2, tgt)
-        D = jnp.where(ws[-1], D2, D)
-        return (zr, zi, tgt, D, p, s), rows, last_amp
+def _int_pow(m, n, nbits: int):
+    """``m ** n`` elementwise for an int exponent array (square and
+    multiply over ``nbits`` bits)."""
+    acc = jnp.ones_like(m)
+    p = m
+    for b in range(nbits):
+        acc = jnp.where(((n >> b) & 1) == 1, acc * p, acc)
+        p = p * p
+    return acc
 
-    def body(i, carry):
-        carry, cur_last = carry
-        all_rows = []
-        for _ in range(U // SUB):
-            carry, rows, cur_last = subgroup(carry)
-            all_rows.extend(rows)
-        Y = jnp.concatenate(all_rows, axis=0)
+
+def _envelope_rows(step, block_len):
+    """Per-tick, per-voice rows of the envelope closed form.
+
+    Returns ``(c [B, V], n [B, V], kw [V])``: the blend coefficient of
+    tick k, the number of cycle wraps through tick k (float), and the
+    first wrap tick."""
+    s0 = step.astype(jnp.int32)
+    kw = jnp.where(s0 == 0, 0, CYCLE - s0)
+    k = jnp.arange(block_len, dtype=jnp.int32)[:, None]
+    sk = jnp.mod(s0 + k, CYCLE)
+    # before the first wrap the blend continues from the entry state:
+    # q_k = prod_{i=s0+1..s0+k+1} (1 - i/64)
+    nq = min(block_len, CYCLE)
+    kq = jnp.arange(nq, dtype=jnp.float32)[:, None]
+    f = 1.0 - (s0.astype(jnp.float32) + kq + 1.0) / INTERP
+    q = jnp.cumprod(jnp.where(kq < kw, f, 0.0), axis=0)
+    q = jnp.pad(q, ((0, block_len - nq), (0, 0)))
+    c = jnp.where(k < kw, q, jnp.take(jnp.asarray(_P_EXT), sk + 1))
+    n = jnp.where(k >= kw, (k - kw) // CYCLE + 1, 0)
+    return c, n.astype(jnp.float32), kw
+
+
+def _entry_states(z_re, z_im, m_re, m_im, tgt0, d0, mult, kw, t0s, chunk):
+    """Closed-form state at each chunk start ``t0`` (all static,
+    ``t0s[i] = i*chunk``): oscillator ``z0·m^t0`` and envelope ``(T, E)``
+    after the wraps before ``t0``.  Returns ``[len(t0s), H, V]`` planes
+    and the wrap counts ``[len(t0s), V]``."""
+    # m^chunk by squaring (chunk is a power of two)
+    pr, pi = m_re, m_im
+    for _ in range(int(math.log2(chunk))):
+        pr, pi = pr * pr - pi * pi, 2.0 * pr * pi
+    zr, zi = [z_re], [z_im]
+    for _ in t0s[1:]:
+        r, i = zr[-1], zi[-1]
+        zr.append(r * pr - i * pi)
+        zi.append(r * pi + i * pr)
+    t0 = jnp.asarray(t0s, jnp.int32)[:, None]
+    nb = jnp.where(t0 > kw, (t0 - 1 - kw) // CYCLE + 1, 0)    # [C, V]
+    nbits = max(1, int(t0s[-1] // CYCLE + 2).bit_length())
+    prev = tgt0 * _int_pow(mult[None], jnp.maximum(nb - 1, 0)[:, None],
+                           nbits)
+    t_n = prev * mult
+    wrapped = (nb > 0)[:, None]
+    T = jnp.where(wrapped, t_n, tgt0)
+    E = jnp.where(wrapped, prev - t_n, d0)
+    return jnp.stack(zr), jnp.stack(zi), T, E, nb.astype(jnp.float32)
+
+
+def _kernel(sub, with_mix, zr_ref, zi_ref, t_ref, e_ref, nb_ref, mr_ref,
+            mi_ref, mult_ref, c_ref, n_ref, y_ref):
+    mult = mult_ref[...]            # [H, TV]
+    plane3 = (1,) + mult.shape
+    mr = jnp.reshape(mr_ref[...], plane3)   # [1, H, TV]
+    mi = jnp.reshape(mi_ref[...], plane3)
+    L = c_ref.shape[0]
+
+    # m^(j+1), j < sub: a [sub, H, TV] tile of powers (gain 3 folded in)
+    e = jnp.reshape(jnp.arange(sub, dtype=jnp.int32) + 1, (sub, 1, 1))
+    ar = jnp.ones((sub,) + mult.shape, jnp.float32)
+    ai = jnp.zeros((sub,) + mult.shape, jnp.float32)
+    pr, pi = mr, mi
+    for b in range(int(math.log2(sub)) + 1):
+        bit = ((e >> b) & 1) == 1
+        ar, ai = (jnp.where(bit, ar * pr - ai * pi, ar),
+                  jnp.where(bit, ar * pi + ai * pr, ai))
+        if b < int(math.log2(sub)):
+            pr, pi = pr * pr - pi * pi, 2.0 * pr * pi
+    msr = jnp.reshape(pr, mult.shape)      # m^sub
+    msi = jnp.reshape(pi, mult.shape)
+    mjr3 = ar * 3.0
+    mji3 = ai * 3.0
+
+    def subgroup(g, carry):
+        zr, zi, T, E, ncur = carry
+        rows = pl.ds(g * sub, sub)
+        tv = ncur.shape[0]
+        crow = jnp.reshape(c_ref[rows, :], (sub, 1, tv))
+        after = jnp.reshape(n_ref[rows, :], (sub, 1, tv)) > jnp.reshape(
+            ncur, (1, 1, tv))
+        T2 = T * mult
+        E2 = T - T2
+        p3 = lambda x: jnp.reshape(x, plane3)
+        amp = jnp.where(after, p3(T2) + p3(E2) * crow,
+                        p3(T) + p3(E) * crow)
+        im = p3(zr) * mji3 + p3(zi) * mjr3
+        yv = jnp.sum(im * amp, axis=1)          # [sub, TV]
         if with_mix:
-            # fan-in mixdown fused into the kernel: emit only the
-            # voice-summed audio (per tile; tiles summed outside) — skips
-            # the [B, V] HBM round-trip entirely
-            y_ref[pl.ds(i * U, U), :] = jnp.sum(Y, axis=1, keepdims=True)
+            y_ref[rows] = jnp.sum(yv, axis=1)
         else:
-            y_ref[pl.ds(i * U, U), :] = Y
-        return (carry, cur_last)
+            y_ref[rows, :] = yv
+        nlast = n_ref[g * sub + sub - 1, :]      # [TV]
+        w = jnp.reshape(nlast > ncur, (1, tv))
+        return (zr * msr - zi * msi, zr * msi + zi * msr,
+                jnp.where(w, T2, T), jnp.where(w, E2, E), nlast)
 
-    zr0 = or_ref[:]
-    zi0 = oi_ref[:]
-    cur0 = cur_ref[:]
-    s0 = step_ref[:]
-    # entry anchor: a wrap at the very first tick takes its cycle base
-    # from CUR (reference: tgt = cur*mult at s==0 — mid-block wraps always
-    # follow a settle tick where amp == tgt, but the entry state may have
-    # cur != tgt, e.g. right after a gate event block)
-    tgt0 = jnp.where(s0 == 0.0, cur0, tgt_ref[:])
-    D0 = cur0 - tgt0
-    p0 = jnp.ones_like(s0)
-    (carry, cur_last) = jax.lax.fori_loop(
-        0, B // U, body, ((zr0, zi0, tgt0, D0, p0, s0), cur0))
-    zr, zi, tgt, D, p, s = carry
-    or_o[:] = zr
-    oi_o[:] = zi
-    cur_o[:] = cur_last
-    tgt_o[:] = tgt
-    step_o[:] = s
+    jax.lax.fori_loop(0, L // sub, subgroup,
+                      (zr_ref[...], zi_ref[...], t_ref[...], e_ref[...],
+                       nb_ref[...]))
 
 
-def _kernel_v3(U, SUB, with_mix, or_ref, oi_ref, mr_ref,
-               mi_ref, cur_ref, tgt_ref, mult_ref, step_ref, y_ref, or_o,
-               oi_o, cur_o, tgt_o, step_o):
-    # U = fori unroll (samples per loop body); SUB = closed-form subgroup
-    # (rotation anchor + at-most-one envelope-cycle wrap; SUB <= 65).
-    mr = mr_ref[:]
-    mi = mi_ref[:]
-    mult = mult_ref[:]
-    B = y_ref.shape[0]
-
-    # m^j planes, j = 1..SUB (built once per block; the *3 copies fold the
-    # reference's output gain into the rotation tables)
-    mjr = [mr]
-    mji = [mi]
-    for _ in range(SUB - 1):
-        pr, pi = mjr[-1], mji[-1]
-        mjr.append(pr * mr - pi * mi)
-        mji.append(pr * mi + pi * mr)
-    msr, msi = mjr[SUB - 1], mji[SUB - 1]
-    mji3 = [m * 3.0 for m in mji]
-    mjr3 = [m * 3.0 for m in mjr]
-
-    def subgroup(carry):
-        zr, zi, tgt, D, p, s = carry
-        tgtm = tgt * mult        # next cycle's target, if a wrap occurs
-        G1 = tgtm - tgt
-        # row pre-pass (cheap [1,V] ops): P recurrence + per-tick
-        # coefficient rows r1 (pre-wrap, scales D) and r2 (post-wrap,
-        # scales G1) so the per-tick plane math is two FMAs with no
-        # selects: amp = tgt + r1·D + r2·G1.
-        r1s = []
-        r2s = []
-        wrapped = jnp.zeros_like(s, dtype=jnp.bool_)
-        for _ in range(SUB):
-            wrap = s == 0.0
-            wrapped = jnp.logical_or(wrapped, wrap)
-            p = jnp.where(wrap, 63.0 / 64.0,
-                          p * (1.0 - (s + 1.0) / INTERP))
-            r1s.append(jnp.where(wrapped, 0.0, p))
-            r2s.append(jnp.where(wrapped, 1.0 - p, 0.0))
-            s = jnp.where(s < INTERP, s + 1.0, 0.0)
-        rows = []
-        for j in range(SUB):
-            amp = r2s[j] * G1 + (r1s[j] * D + tgt)
-            im = zr * mji3[j] + zi * mjr3[j]
-            rows.append(jnp.sum(im * amp, axis=0, keepdims=True))
-            last_amp = amp
-        zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
-        w_last = wrapped
-        tgt = jnp.where(w_last, tgtm, tgt)
-        D = jnp.where(w_last, -G1, D)
-        return (zr, zi, tgt, D, p, s), rows, last_amp
-
-    def body(i, carry):
-        carry, cur_last = carry
-        all_rows = []
-        for _ in range(U // SUB):
-            carry, rows, cur_last = subgroup(carry)
-            all_rows.extend(rows)
-        Y = jnp.concatenate(all_rows, axis=0)
-        if with_mix:
-            y_ref[pl.ds(i * U, U), :] = jnp.sum(Y, axis=1, keepdims=True)
-        else:
-            y_ref[pl.ds(i * U, U), :] = Y
-        return (carry, cur_last)
-
-    zr0 = or_ref[:]
-    zi0 = oi_ref[:]
-    cur0 = cur_ref[:]
-    s0 = step_ref[:]
-    # entry anchor: a wrap at the very first tick takes its cycle base
-    # from CUR (reference: tgt = cur*mult at s==0 — mid-block wraps always
-    # follow a settle tick where amp == tgt, but the entry state may have
-    # cur != tgt, e.g. right after a gate event block)
-    tgt0 = jnp.where(s0 == 0.0, cur0, tgt_ref[:])
-    D0 = cur0 - tgt0
-    p0 = jnp.ones_like(s0)
-    (carry, cur_last) = jax.lax.fori_loop(
-        0, B // U, body, ((zr0, zi0, tgt0, D0, p0, s0), cur0))
-    zr, zi, tgt, D, p, s = carry
-    or_o[:] = zr
-    oi_o[:] = zi
-    cur_o[:] = cur_last
-    tgt_o[:] = tgt
-    step_o[:] = s
-
-
-def _kernel_v4(U, SUB, with_mix, epi_fn, epi_split, *refs):
-    # epi_fn: optional stream epilogue fused onto the voice mixdown —
-    # a static fn(mix_rows [U,1], t0, p_ref) -> tuple of [U,1] channel
-    # columns applied per body (the consumer node's per-sample math,
-    # e.g. Tremolo's stereo pan; see graph/block_mode.py epilogue
-    # fusion).  p_ref is an SMEM row of its block-constant parameters,
-    # threaded as the 9th operand.  ``epi_split`` > 0 stores each
-    # channel column to its OWN (B, 1) output ref — the round-3 fused
-    # epilogue stored one (B, C) ref, and the [U, C] narrow-lane store
-    # (C=2 lanes padded to 128) measured +3.6 us/block, sinking the
-    # whole fusion; per-channel [U, 1] stores are the same class as the
-    # with_mix mixdown store, which measures free (tools/glueabl3.py).
-    # epi_split == 0 keeps the single-ref store (in-kernel concat) for
-    # A/B.
-    #
-    # MEASURED (round 5, tools/epiabl.py, flagship B=1024, 14 windows
-    # interleaved): split stores fix the store penalty relative to the
-    # single-ref form (median 26.6 vs 27.2+) but the fusion itself still
-    # loses to the unfused XLA tremolo in EVERY window (off med 23.0 /
-    # best 21.1 vs split med 26.6 / best 23.3): the per-body [U,1]
-    # sub-lane pan (transcendental sin at 1-lane width, 8 bodies) plus
-    # the extra output ref cost more than the ~2.5 us of XLA fusion-
-    # launch overhead they remove.  Epilogue fusion therefore stays
-    # default-OFF (OSCEN_EPILOGUE_FUSION=1 to re-evaluate); the tremolo
-    # boundary cost at B=1024 is a per-launch floor, not a layout or
-    # store-shape problem (tools/tremabl.py rejected channel-major and
-    # phase-only-cond layouts the same way).
-    if epi_fn is not None:
-        n_y = epi_split if epi_split else 1
-        (or_ref, oi_ref, mr_ref, mi_ref, cur_ref, tgt_ref, mult_ref,
-         step_ref, epi_ref) = refs[:9]
-        y_refs = refs[9:9 + n_y]
-        y_ref = y_refs[0]
-        (or_o, oi_o, cur_o, tgt_o, step_o) = refs[9 + n_y:]
-    else:
-        (or_ref, oi_ref, mr_ref, mi_ref, cur_ref, tgt_ref, mult_ref,
-         step_ref, y_ref, or_o, oi_o, cur_o, tgt_o, step_o) = refs
-        epi_ref = None
-    # v4 = v3 with the row pre-pass restructured around the wrap tick.
-    # v3 carries the step counter s through a per-tick select chain
-    # (wrap compare, logical-or, s-update selects) and threads the
-    # envelope product p through a 5-op serial dependency per tick —
-    # measured 4.4 us of the 21.9 us kernel (tools/kabl4.py: norows).
-    # v4 computes the subgroup's wrap tick once (jw = (65 - s0) mod 65;
-    # the cycle period is 65 so SUB <= 65 sees at most one wrap) and
-    # derives every per-tick row from the STATIC tick index j:
-    #   wf_j = j >= jw                    (one compare)
-    #   f_j  = (63 - j)/64 - s0/64 + wf_j * 65/64
-    #   p_j  = j == jw ? 63/64 : p_{j-1} * f_j
-    #   amp  = r2_j*G1 + (r1_j*D + tgt)   (identical fp expression to v3)
-    # All f_j terms are multiples of 1/64 with magnitude < 2, so the
-    # arithmetic is exact in f32 and v4 is BIT-IDENTICAL to v3 (asserted
-    # in tests/test_pallas.py); the serial chain shrinks to mul+select.
-    mr = mr_ref[:]
-    mi = mi_ref[:]
-    mult = mult_ref[:]
-    B = y_ref.shape[0]
-
-    mjr = [mr]
-    mji = [mi]
-    for _ in range(SUB - 1):
-        pr, pi = mjr[-1], mji[-1]
-        mjr.append(pr * mr - pi * mi)
-        mji.append(pr * mi + pi * mr)
-    msr, msi = mjr[SUB - 1], mji[SUB - 1]
-    mji3 = [m * 3.0 for m in mji]
-    mjr3 = [m * 3.0 for m in mjr]
-
-    C = 63.0 / 64.0
-
-    def subgroup(carry):
-        zr, zi, tgt, D, p, s = carry
-        tgtm = tgt * mult        # next cycle's target, if a wrap occurs
-        G1 = tgtm - tgt
-        at0 = s == 0.0
-        jw = jnp.where(at0, 0.0, 65.0 - s)     # wrap tick (may be > SUB)
-        basef = s * (-1.0 / 64.0)
-        addf = jnp.where(at0, 0.0, 65.0 / 64.0)
-        zero = jnp.zeros_like(s)
-        rows = []
-        for j in range(SUB):
-            wfb = jw <= float(j)
-            cjb = basef + (63.0 - j) / 64.0
-            f = cjb + jnp.where(wfb, addf, zero)
-            p = jnp.where(jw == float(j), C, p * f)
-            r1 = jnp.where(wfb, zero, p)
-            r2 = jnp.where(wfb, 1.0 - p, zero)
-            amp = r2 * G1 + (r1 * D + tgt)
-            im = zr * mji3[j] + zi * mjr3[j]
-            rows.append(jnp.sum(im * amp, axis=0, keepdims=True))
-            last_amp = amp
-        zr, zi = zr * msr - zi * msi, zr * msi + zi * msr
-        w_last = jw <= float(SUB - 1)
-        tgt = jnp.where(w_last, tgtm, tgt)
-        D = jnp.where(w_last, -G1, D)
-        # the step counter cycles 0..64 (period 65); s0 <= 64 and
-        # SUB <= 64 so one conditional subtract is a full mod
-        t = s + float(SUB)
-        s = jnp.where(t >= 65.0, t - 65.0, t)
-        return (zr, zi, tgt, D, p, s), rows, last_amp
-
-    def body(i, carry):
-        carry, cur_last = carry
-        all_rows = []
-        for _ in range(U // SUB):
-            carry, rows, cur_last = subgroup(carry)
-            all_rows.extend(rows)
-        Y = jnp.concatenate(all_rows, axis=0)
-        if with_mix:
-            mix = jnp.sum(Y, axis=1, keepdims=True)
-            if epi_fn is not None:
-                cols = epi_fn(mix, i * U, epi_ref)
-                if epi_split:
-                    for c, col in enumerate(cols):
-                        y_refs[c][pl.ds(i * U, U), :] = col
-                else:
-                    y_ref[pl.ds(i * U, U), :] = jnp.concatenate(
-                        cols, axis=1)
-            else:
-                y_ref[pl.ds(i * U, U), :] = mix
-        else:
-            y_ref[pl.ds(i * U, U), :] = Y
-        return (carry, cur_last)
-
-    zr0 = or_ref[:]
-    zi0 = oi_ref[:]
-    cur0 = cur_ref[:]
-    s0 = step_ref[:]
-    tgt0 = jnp.where(s0 == 0.0, cur0, tgt_ref[:])
-    D0 = cur0 - tgt0
-    p0 = jnp.ones_like(s0)
-    (carry, cur_last) = jax.lax.fori_loop(
-        0, B // U, body, ((zr0, zi0, tgt0, D0, p0, s0), cur0))
-    zr, zi, tgt, D, p, s = carry
-    or_o[:] = zr
-    oi_o[:] = zi
-    cur_o[:] = cur_last
-    tgt_o[:] = tgt
-    step_o[:] = s
-
-
-def _kernel_parity(U, with_mix, or_ref, oi_ref, mr_ref, mi_ref, cur_ref,
-                   tgt_ref, mult_ref, step_ref, y_ref, or_o, oi_o, cur_o,
-                   tgt_o, step_o):
-    # Exact-op-order kernel: per sample, the reference's envelope tick
-    # (target refresh at step==0, linear blend toward target, step
-    # advance) followed by the complex rotation and the amplitude-weighted
-    # harmonic sum — the same f32 expressions, in the same order, as the
-    # per-sample ``tick`` paths (AmplitudeSource.tick / OscillatorBank.tick
-    # ↔ electric_piano_voice.rs:116-170, :282-356).  No closed-form
-    # subgroups: deviations vs sample mode are reduction-order and
-    # FMA-formation only (~1 ulp per op), 1e-6-class RMS — vs the fused
-    # kernels' ~5e-4 subgroup anchoring bound.
-    mr = mr_ref[:]
-    mi = mi_ref[:]
-    mult = mult_ref[:]
-    B = y_ref.shape[0]
-    STEPS = INTERP  # 64.0
-
-    def body(i, carry):
-        zr, zi, cur, tgt, s = carry
-        rows = []
-        for _ in range(U):
-            # AmplitudeSource.tick
-            tgt = jnp.where(s == 0.0, cur * mult, tgt)
-            interp = s < STEPS
-            tau = (s + 1.0) / STEPS
-            cur_i = cur * (1.0 - tau) + tgt * tau
-            cur = jnp.where(interp, cur_i, tgt)
-            s = jnp.where(interp, s + 1.0, 0.0)
-            # OscillatorBank.tick
-            nre = zr * mr - zi * mi
-            nim = zr * mi + zi * mr
-            zr, zi = nre, nim
-            rows.append(
-                jnp.sum(nim * cur, axis=0, keepdims=True) * 3.0)
-        Y = jnp.concatenate(rows, axis=0)
-        if with_mix:
-            y_ref[pl.ds(i * U, U), :] = jnp.sum(Y, axis=1, keepdims=True)
-        else:
-            y_ref[pl.ds(i * U, U), :] = Y
-        return (zr, zi, cur, tgt, s)
-
-    zr, zi, cur, tgt, s = jax.lax.fori_loop(
-        0, B // U, body,
-        (or_ref[:], oi_ref[:], cur_ref[:], tgt_ref[:], step_ref[:]))
-    or_o[:] = zr
-    oi_o[:] = zi
-    cur_o[:] = cur
-    tgt_o[:] = tgt
-    step_o[:] = s
-
-
-def epilogue_supported(num_voices: int) -> bool:
-    """True when the voice count fits one kernel tile (the stream
-    epilogue writes the single [B, C] output; multi-tile grids emit
-    per-tile partial mixes instead).  The parity kernel opts out —
-    keeping its fp story exactly the per-sample op order."""
-    if _kernel_version() == "parity":
-        return False
-    Vp = num_voices + ((-num_voices) % 128)
-    return Vp <= int(os.environ.get("OSCEN_ADDITIVE_TILE", "256"))
-
-
+@functools.partial(jax.jit, static_argnames=("block_len", "interpret",
+                                             "with_mix"))
 def additive_voice_block(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
                          step, block_len: int, interpret: bool = False,
-                         with_mix: bool = False, epi_fn=None,
-                         epi_c: int = 0, epi_params=None, version=None):
-    """One steady-state block of the fused additive voice (version shim:
-    resolves ``OSCEN_ADDITIVE_KERNEL`` at call time so the selection is
-    a jit cache key, then dispatches to the jitted impl)."""
-    if version is None:
-        version = _kernel_version()
-    epi_split = (epi_c if epi_fn is not None and os.environ.get(
-        "OSCEN_EPI_SPLIT", "1") == "1" else 0)
-    return _additive_voice_block(osc_re, osc_im, mul_re, mul_im, cur, tgt,
-                                 mult, step, block_len=block_len,
-                                 interpret=interpret, with_mix=with_mix,
-                                 epi_fn=epi_fn, epi_c=epi_c,
-                                 epi_params=epi_params, version=version,
-                                 epi_split=epi_split)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("block_len", "interpret", "with_mix",
-                                    "epi_fn", "epi_c", "version",
-                                    "epi_split"))
-def _additive_voice_block(osc_re, osc_im, mul_re, mul_im, cur, tgt, mult,
-                          step, block_len: int, interpret: bool = False,
-                          with_mix: bool = False, epi_fn=None,
-                          epi_c: int = 0, epi_params=None,
-                          version: str = "v4", epi_split: int = 0):
+                         with_mix: bool = False):
     """One steady-state block of the fused additive voice.
 
     Args (all ``[H, V]`` except ``step`` ``[V]``): oscillator complex
-    state + rotation multipliers, envelope current/target/multiplier
-    planes, per-voice interpolation step counter.
+    state and rotation multipliers, envelope current/target/multiplier
+    planes, per-voice interpolation step counter (0..64).
     Returns (y ``[B, V]``, new osc_re, osc_im, cur, tgt, step) — or, with
     ``with_mix``, y is the voice-summed mix ``[B]`` (the graph's FanIn
-    edge fused into the kernel).
-
-    ``epi_fn``/``epi_c``/``epi_params``: optional stream epilogue fused
-    after the mixdown (requires ``with_mix`` and a single voice tile —
-    check :func:`epilogue_supported`): a static
-    ``fn(mix [U,1], t0, p_ref) -> [U, epi_c]`` evaluated inside the
-    kernel with ``p_ref`` an SMEM row holding ``epi_params`` (the
-    consumer node's block-constant parameters).  y becomes ``[B, epi_c]``.
+    edge fused into the kernel; per-program partial sums added by XLA).
     """
-    if block_len % _UNROLL:
-        raise ValueError(
-            f"block_len must be a multiple of {_UNROLL} for the fused "
-            f"kernel (got {block_len})")
+    if not supported(block_len):
+        raise ValueError(f"block_len must be a multiple of 8 for the "
+                         f"fused kernel (got {block_len})")
     H, V = osc_re.shape
-    padV = (-V) % 128
-    padH = (-H) % 8
+    B = block_len
+    sub = pick_unroll(B, SUB)
+    chunk = pick_unroll(B, CHUNK)
+    n_chunks = B // chunk
+    tv = min(TV, next_pow2(V))
+    Hp, Vp = next_pow2(H), -(-V // tv) * tv
 
-    def pad(x):
-        return jnp.pad(x, ((0, padH), (0, padV)))
+    s0 = step.astype(jnp.int32)
+    tgt0 = jnp.where(s0[None, :] == 0, cur, tgt)
+    d0 = cur - tgt0
+    c, n, kw = _envelope_rows(s0, B)
+    t0s = tuple(range(0, B + 1, chunk))
+    zr, zi, T, E, nb = _entry_states(osc_re, osc_im, mul_re, mul_im, tgt0,
+                                     d0, mult, kw, t0s, chunk)
 
-    step_row = jnp.pad(jnp.reshape(step.astype(jnp.float32), (1, -1)),
-                       ((0, 0), (0, padV)))
-    Hp, Vp = H + padH, V + padV
+    def pad(x):  # zero voices / harmonics contribute nothing
+        widths = [(0, 0)] * x.ndim
+        widths[-1] = (0, Vp - V)
+        if x.ndim >= 2 and x.shape[-2] == H and x is not c and x is not n:
+            widths[-2] = (0, Hp - H)
+        return jnp.pad(x, widths)
 
-    # U=128/SUB=64 measured best for v4 (tools/kabl6.py: -1.3 us median
-    # vs U=64/SUB=32; U=128 is bit-exact, SUB=64 moves the subgroup
-    # anchor — 1.3e-6 relative deviation, inside the documented budget).
-    # The old v1 kernel regressed at U=128 (code size); v4 does not.
-    max_u_default = "64" if version == "parity" else "128"
-    U = pick_unroll(block_len,
-                    max_u=int(os.environ.get("OSCEN_ADDITIVE_UNROLL",
-                                             max_u_default)))
-    SUB = min(U, min(64, int(os.environ.get("OSCEN_ADDITIVE_SUB", "64"))))
-
-    # grid over voice tiles: keeps VMEM bounded for large voice counts
-    # (each tile's state/output is independent — voices don't interact)
-    TILE = int(os.environ.get("OSCEN_ADDITIVE_TILE", "256"))
-    n_tiles = max(Vp // TILE, 1)
-    tile = Vp // n_tiles  # Vp is a multiple of 128; tiles stay aligned
-    while tile % 128:
-        n_tiles -= 1
-        tile = Vp // n_tiles
-
-    def vspec(rows):
-        return pl.BlockSpec((rows, tile), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-
-    if epi_fn is not None and (not with_mix or n_tiles != 1):
-        raise ValueError("epilogue fusion requires with_mix and one "
-                         "voice tile (see epilogue_supported)")
-
-    plane = jax.ShapeDtypeStruct((Hp, Vp), jnp.float32)
-    if with_mix and epi_fn is not None and epi_split:
-        # one (B, 1) output ref per epilogue channel: [U, 1] stores
-        # (free, same class as the mixdown store) instead of the
-        # +3.6 us/block narrow [U, C] store of the single-ref form
-        y_shape = tuple(jax.ShapeDtypeStruct((block_len, 1), jnp.float32)
-                        for _ in range(epi_split))
-        y_spec = tuple(pl.BlockSpec((block_len, 1), lambda i: (0, 0),
-                                    memory_space=pltpu.VMEM)
-                       for _ in range(epi_split))
-    elif with_mix and epi_fn is not None:
-        y_shape = jax.ShapeDtypeStruct((block_len, epi_c), jnp.float32)
-        y_spec = pl.BlockSpec((block_len, epi_c), lambda i: (0, 0),
-                              memory_space=pltpu.VMEM)
-    elif with_mix:
-        y_shape = jax.ShapeDtypeStruct((block_len, n_tiles), jnp.float32)
-        y_spec = pl.BlockSpec((block_len, 1), lambda i: (0, i),
-                              memory_space=pltpu.VMEM)
+    grid = (Vp // tv, n_chunks)
+    entry = pl.BlockSpec((None, Hp, tv), lambda v, k: (k, 0, v))
+    plane = pl.BlockSpec((Hp, tv), lambda v, k: (0, v))
+    rows = pl.BlockSpec((chunk, tv), lambda v, k: (k, v))
+    if with_mix:
+        y_shape = jax.ShapeDtypeStruct((grid[0], B), jnp.float32)
+        y_spec = pl.BlockSpec((None, chunk), lambda v, k: (v, k))
     else:
-        y_shape = jax.ShapeDtypeStruct((block_len, Vp), jnp.float32)
-        y_spec = vspec(block_len)
-    if version in ("v3", "v4", "parity") or epi_fn is not None:
-        if version == "parity" and epi_fn is None:
-            kern = functools.partial(_kernel_parity, U, with_mix)
-        elif version == "v3" and epi_fn is None:
-            kern = functools.partial(_kernel_v3, U, SUB, with_mix)
-        else:
-            kern = functools.partial(_kernel_v4, U, SUB, with_mix, epi_fn,
-                                     epi_split)
-        extra_in = []
-        extra_specs = []
-        if epi_fn is not None:
-            extra_in = [jnp.asarray(epi_params, jnp.float32)]
-            extra_specs = [pl.BlockSpec(memory_space=pltpu.SMEM)]
-        # epi_split > 0 widens the y output into epi_split (B, 1) refs;
-        # the state-plane outputs (and the input->output aliases that
-        # keep XLA from copying the [H,V] carries per block) shift right
-        n_y = epi_split if (epi_fn is not None and epi_split) else 1
-        y_shapes = y_shape if isinstance(y_shape, tuple) else (y_shape,)
-        y_specs = y_spec if isinstance(y_spec, tuple) else (y_spec,)
-        d = n_y - 1
-        outs = pl.pallas_call(
-            kern,
-            grid=(n_tiles,),
-            out_shape=y_shapes + (
-                plane, plane, plane, plane,
-                jax.ShapeDtypeStruct((1, Vp), jnp.float32),
-            ),
-            in_specs=[vspec(Hp)] * 7 + [vspec(1)] + extra_specs,
-            out_specs=y_specs + (vspec(Hp),) * 4 + (vspec(1),),
-            # alias the state planes input->output: without this XLA
-            # copies [H,V] planes per block to thread the scan carry
-            # (2 copies visible in the steady loop body)
-            input_output_aliases={0: 1 + d, 1: 2 + d, 4: 3 + d,
-                                  5: 4 + d, 7: 5 + d},
-            interpret=interpret,
-        )(pad(osc_re), pad(osc_im), pad(mul_re), pad(mul_im),
-          pad(cur), pad(tgt), pad(mult), step_row, *extra_in)
-        ys = outs[:n_y]
-        or_o, oi_o, cur_o, tgt_o, step_o = outs[n_y:]
-        y = ys[0] if n_y == 1 else jnp.concatenate(ys, axis=1)
-    else:
-        y, or_o, oi_o, cur_o, tgt_o, step_o = pl.pallas_call(
-            functools.partial(_kernel, U, SUB, with_mix),
-            grid=(n_tiles,),
-            out_shape=(
-                y_shape,
-                plane, plane, plane, plane,
-                jax.ShapeDtypeStruct((1, Vp), jnp.float32),
-            ),
-            in_specs=[vspec(Hp)] * 7 + [vspec(1)],
-            out_specs=(y_spec,) + (vspec(Hp),) * 4 + (vspec(1),),
-            interpret=interpret,
-        )(pad(osc_re), pad(osc_im), pad(mul_re), pad(mul_im), pad(cur),
-          pad(tgt), pad(mult), step_row)
-    if with_mix and epi_fn is not None:
-        y_out = y                   # [B, epi_c] (epilogue output)
-    elif with_mix:
-        y_out = jnp.sum(y, axis=1)  # [B] (partial tile sums)
-    else:
-        y_out = y[:, :V]
-    return (y_out, or_o[:H, :V], oi_o[:H, :V], cur_o[:H, :V],
-            tgt_o[:H, :V], step_o[0, :V])
+        y_shape = jax.ShapeDtypeStruct((B, Vp), jnp.float32)
+        y_spec = rows
+    y = pl.pallas_call(
+        functools.partial(_kernel, sub, with_mix),
+        out_shape=y_shape,
+        grid=grid,
+        in_specs=[entry] * 4
+        + [pl.BlockSpec((None, tv), lambda v, k: (k, v))]
+        + [plane] * 3 + [rows] * 2,
+        out_specs=y_spec,
+        compiler_params=pltriton.CompilerParams(num_warps=NUM_WARPS,
+                                                num_stages=1),
+        interpret=interpret,
+        name="additive_voice",
+    )(pad(zr[:-1]), pad(zi[:-1]), pad(T[:-1]), pad(E[:-1]), pad(nb[:-1]),
+      pad(mul_re), pad(mul_im), pad(mult), pad(c), pad(n))
+
+    # state after the block: the closed form at t0 = B
+    cur_o = T[-1] + E[-1] * c[-1][None, :]
+    step_o = jnp.mod(s0 + B, CYCLE)
+    y_out = jnp.sum(y, axis=0) if with_mix else y[:, :V]
+    return y_out, zr[-1], zi[-1], cur_o, T[-1], step_o

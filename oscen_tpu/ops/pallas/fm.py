@@ -1,227 +1,86 @@
-"""Pallas kernel: FM operator with self-feedback, voice-parallel.
+"""FM operator chains, voice-parallel.
 
-The FM operator's self-feedback (``prev_output * feedback`` into the phase,
-reference examples/fm-synth/src/nodes/fm_operator.rs:57-77) is a one-sample
-nonlinear recurrence — not reformulable as a scan.  This kernel replays the
-exact per-sample op order with voices in lanes; without it, block mode
-falls back to a 512-step XLA while-loop per operator.
+The FM operators' self-feedback (``prev_output * feedback`` into the
+phase, reference examples/fm-synth/src/nodes/fm_operator.rs:57-77) is a
+one-sample nonlinear recurrence — not reformulable as a scan.  The
+chains run their per-sample step functions (the same ones the nodes'
+``tick`` uses) through :func:`~.recurrence.lane_scan`, voices in lanes.
+
+With every feedback at 0 (the reference examples' default) the only
+cross-sample dependency left is the phase recurrence: the zero-feedback
+paths scan only the wrapped phases and evaluate the sines and the
+routing for the whole block at once.
 """
 
 from __future__ import annotations
 
-import functools
-import math
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from .util import pick_unroll
 from ..fastmath import sin_turns
-
-TAU = 2.0 * math.pi
-
-
-def _kernel(B, U, phase0_ref, prev0_ref, dt_ref, pm_ref, fb_ref, env_ref,
-            lvl_ref, y_ref, phase_o, prev_o):
-    # B = true block length (bound via partial): looping the padded
-    # shape would zero the prev_output carry on the padded tail.
-    # U = unroll factor.
-
-    def sample(t, carry):
-        phase, prev = carry
-        # exact reference op order (fm_operator.rs:57-77)
-        fbm = prev * fb_ref[pl.ds(t, 1), :]
-        total_pm = pm_ref[pl.ds(t, 1), :] + fbm
-        y = sin_turns(phase + total_pm) \
-            * env_ref[pl.ds(t, 1), :] * lvl_ref[pl.ds(t, 1), :]
-        phase = phase + dt_ref[pl.ds(t, 1), :]
-        return (phase - jnp.trunc(phase), y), y  # Rust .fract()
-
-    def body(i, carry):
-        rows = []
-        for j in range(U):
-            carry, y = sample(i * U + j, carry)
-            rows.append(y)
-        y_ref[pl.ds(i * U, U), :] = jnp.concatenate(rows, axis=0)
-        return carry
-
-    phase, prev = jax.lax.fori_loop(0, B // U, body,
-                                    (phase0_ref[:], prev0_ref[:]))
-    phase_o[:] = phase
-    prev_o[:] = prev
+from .recurrence import lane_scan
 
 
-def _chain3_pipe_kernel(B, U, ph_ref, prev_ref, dt3_ref, dt2_ref, dt1_ref,
-                        fb_ref, mix_ref, env3_ref,
-                        env2_ref, env1_ref, y_ref, ph_o, prev_o, d2_o):
-    """Software-pipelined variant: iteration i computes op3 sample i,
-    op2 sample i-1, op1 sample i-2 — so the three sins (and the FM
-    arithmetic) run as ONE stacked [3, V] vector op per iteration instead
-    of three dependent [1, V] ops.  The per-sample math and op order are
-    unchanged (same f32 results as ``tick``); only the schedule shifts.
-
-    Row r is "active" for r <= i < B + r; inactive rows neither advance
-    their phase nor update the prev/feedback carry, so the prologue
-    computes garbage that never escapes and the epilogue drains op2/op1.
-    env/dt streams are pre-shifted by the wrapper so row r's stream is
-    read at index i (= its sample i - r); six [1, V] reads + two concats
-    per iteration measured FASTER than one interleaved aligned [24, V]
-    chunk read per unrolled body (105 vs 148 µs/block at B=1024, V=256).
-    y_ref rows 0..1 are garbage (sliced off).
-
-    Round-3 changes: (a) op levels are folded into the env streams by
-    the wrapper (y = sin·(env·lvl), matching the tick's association);
-    (b) the activity masks only matter while the pipeline fills (i < 2)
-    and drains (i >= B) — the steady middle bodies run a mask-free
-    sample (~8 fewer vector ops per sample on the dependent path).
-    """
-    fb = fb_ref[:]      # [3, V]
-    mix = mix_ref[:]    # [1, V]
-    zero = jnp.zeros_like(mix)
-    one = jnp.ones_like(mix)
-    rowid = jax.lax.broadcasted_iota(jnp.int32, fb.shape, 0)
-    # pm = rotate(prev) * w1 + y3_d2 * w2:
-    #   rows (0, y3[i-1]*(1-mix), y2[i-2]*1) + (0, 0, y3[i-2]*mix)
-    w1 = jnp.concatenate([zero, 1.0 - mix, one], axis=0)
-    w2 = jnp.concatenate([zero, zero, mix], axis=0)
-    # block-constant pitch (no note-on this block — [1, V] dt rows from
-    # the [1]-staged handler frequency): hoist the three per-sample dt
-    # reads + concat out of the loop
-    const_dt = dt3_ref.shape[0] == 1
-    if const_dt:
-        dtc = jnp.concatenate([dt3_ref[:], dt2_ref[:], dt1_ref[:]],
-                              axis=0)
-
-    def sample(i, carry, masked):
-        ph, prev, y3_d2 = carry
-        env = jnp.concatenate([env3_ref[pl.ds(i, 1), :],
-                               env2_ref[pl.ds(i, 1), :],
-                               env1_ref[pl.ds(i, 1), :]], axis=0)
-        dt = dtc if const_dt else jnp.concatenate(
-            [dt3_ref[pl.ds(i, 1), :],
-             dt2_ref[pl.ds(i, 1), :],
-             dt1_ref[pl.ds(i, 1), :]], axis=0)
-        rot = jnp.concatenate([prev[2:3, :], prev[0:2, :]], axis=0)
-        pm = rot * w1 + y3_d2 * w2
-        y = sin_turns(ph + pm + prev * fb) * env
-        nph = ph + dt
-        nph = nph - jnp.trunc(nph)
-        if masked:
-            active = jnp.logical_and(i >= rowid, i < B + rowid)
-            ph = jnp.where(active, nph, ph)
-            nprev = jnp.where(active, y, prev)
-        else:
-            ph = nph
-            nprev = y
-        carry = (ph, nprev, prev[0:1, :])
-        return carry, y[2:3, :]
-
-    def make_body(masked):
-        def body(k, carry):
-            rows = []
-            for j in range(U):
-                carry, y1 = sample(k * U + j, carry, masked)
-                rows.append(y1)
-            y_ref[pl.ds(k * U, U), :] = jnp.concatenate(rows, axis=0)
-            return carry
-        return body
-
-    NI = y_ref.shape[0]  # B + 2 rounded up to U (wrapper guarantees)
-    NB = NI // U
-    steady_lo = 1               # body 0 covers the i < 2 pipeline fill
-    steady_hi = min(B // U, NB)  # bodies past B//U cross the drain edge
-    carry = (ph_ref[:], prev_ref[:], prev_ref[0:1, :])
-    if steady_hi <= steady_lo:
-        carry = jax.lax.fori_loop(0, NB, make_body(True), carry)
-    else:
-        carry = make_body(True)(0, carry)
-        carry = jax.lax.fori_loop(steady_lo, steady_hi,
-                                  make_body(False), carry)
-        for k in range(steady_hi, NB):
-            carry = make_body(True)(k, carry)
-    ph, prev, y3_d2 = carry
-    ph_o[:] = ph
-    prev_o[:] = prev
-    d2_o[:] = y3_d2
+def _fract_advance(ph, dt):
+    ph = ph + dt
+    return ph - jnp.trunc(ph)  # Rust .fract()
 
 
-def _fract3_kernel(B, U, ph_ref, dt_ref, o3_ref, o2_ref, o1_ref, c_ref):
-    # Exact sequential fract-phase iteration for the three chain ops in
-    # one [3, V] plane: per sample, emit the pre-increment phases (the
-    # values the tick synthesizes with), then ph += dt; ph -= trunc(ph)
-    # — the same f32 expressions as FmOperatorChain.tick / the chain
-    # kernels.  dt is block-constant ([3, V] rows; the fast path is only
-    # taken for const-dt blocks).
-    dtc = dt_ref[:]
-
-    def body(i, p):
-        r3, r2, r1 = [], [], []
-        for _ in range(U):
-            r3.append(p[0:1, :])
-            r2.append(p[1:2, :])
-            r1.append(p[2:3, :])
-            np_ = p + dtc
-            p = np_ - jnp.trunc(np_)
-        o3_ref[pl.ds(i * U, U), :] = jnp.concatenate(r3, axis=0)
-        o2_ref[pl.ds(i * U, U), :] = jnp.concatenate(r2, axis=0)
-        o1_ref[pl.ds(i * U, U), :] = jnp.concatenate(r1, axis=0)
-        return p
-
-    c_ref[:] = jax.lax.fori_loop(0, B // U, body, ph_ref[:])
+def fm_chain_step(carry, xs):
+    """One tick of the fm-synth operator chain op3 → route → op2 → op1
+    (fm_voice.rs:119-147).  ``carry``: (ph3, ph2, ph1, prev3, prev2,
+    prev1); ``xs``: (dt3, dt2, dt1, e3, e2, e1, fb3, fb2, fb1, mix) with
+    the op levels folded into the envelopes (``e = env · level``)."""
+    ph3, ph2, ph1, p3, p2, p1 = carry
+    dt3, dt2, dt1, e3, e2, e1, fb3, fb2, fb1, mix = xs
+    y3 = sin_turns(ph3 + 0.0 + p3 * fb3) * e3
+    a = y3 * (1.0 - mix)
+    b = y3 * mix
+    y2 = sin_turns(ph2 + a + p2 * fb2) * e2
+    y1 = sin_turns(ph1 + (y2 + b) + p1 * fb1) * e1
+    return ((_fract_advance(ph3, dt3), _fract_advance(ph2, dt2),
+             _fract_advance(ph1, dt1), y3, y2, y1), y1)
 
 
-def fract_phase3(phases, dt, B: int, interpret: bool = False):
+def pivot_chain_step(carry, xs):
+    """One tick of the pivot operator chain (pivot_voice.rs:94-165): the
+    RAW sine feeds each operator's own feedback, the enveloped/leveled
+    signal drives the routing.  Same ``carry``/``xs`` layout as
+    :func:`fm_chain_step` (``e1`` is ``env1 · 1.0``: vca1 has no level)."""
+    ph3, ph2, ph1, p3, p2, p1 = carry
+    dt3, dt2, dt1, e3, e2, e1, fb3, fb2, fb1, mix = xs
+    y3 = sin_turns(ph3 + 0.0 + p3 * fb3)
+    a3 = y3 * e3
+    a = a3 * (1.0 - mix)
+    b = a3 * mix
+    y2 = sin_turns(ph2 + a + p2 * fb2)
+    a2 = y2 * e2
+    y1 = sin_turns(ph1 + (a2 + b) + p1 * fb1)
+    return ((_fract_advance(ph3, dt3), _fract_advance(ph2, dt2),
+             _fract_advance(ph1, dt1), y3, y2, y1), y1 * e1)
+
+
+def _fract_step(p, dt):
+    return _fract_advance(p, dt), p
+
+
+def fract_phase3(phases, dt, B: int):
     """Sequential fract-wrapped phases for the 3-op chain (zero-feedback
-    fast path).  Args: phases/dt ``[3, V]``; ``B`` block length.
-    Returns (ph3, ph2, ph1 each ``[B, V]`` pre-increment, carry
-    ``[3, V]``) — bit-identical to the chain kernels' phase recurrence."""
-    V = phases.shape[1]
-    padV = (-V) % 128
-    U = pick_unroll(B)
-    # voice-tile grid: keeps the three [B, tile] output buffers inside
-    # VMEM at large B (voices are independent)
-    Vp = V + padV
-    tile = Vp
-    n_tiles = 1
-    while B * tile * 4 * 3 > 6 * 1024 * 1024 and tile % 256 == 0:
-        tile //= 2
-        n_tiles *= 2
-
-    def p3(x):
-        return jnp.pad(x, ((0, 0), (0, padV)))
-
-    ph_spec = pl.BlockSpec((3, tile), lambda i: (0, i),
-                           memory_space=pltpu.VMEM)
-    out_spec = pl.BlockSpec((B, tile), lambda i: (0, i),
-                            memory_space=pltpu.VMEM)
-    o3, o2, o1, c = pl.pallas_call(
-        functools.partial(_fract3_kernel, B, U),
-        grid=(n_tiles,),
-        out_shape=(jax.ShapeDtypeStruct((B, Vp), jnp.float32),) * 3
-        + (jax.ShapeDtypeStruct((3, Vp), jnp.float32),),
-        in_specs=[ph_spec, ph_spec],
-        out_specs=(out_spec,) * 3 + (ph_spec,),
-        interpret=interpret,
-    )(p3(phases), p3(dt))
-    return o3[:, :V], o2[:, :V], o1[:, :V], c[:, :V]
+    path).  Args: phases/dt ``[3, V]`` (dt block-constant).  Returns
+    (ph3, ph2, ph1 each ``[B, V]`` pre-increment, carry ``[3, V]``) —
+    bit-identical to the chain steps' phase recurrence."""
+    carry, ph = lane_scan(_fract_step, phases, dt[None], length=B)
+    return ph[:, 0], ph[:, 1], ph[:, 2], carry
 
 
-def _fm_chain3_fast(phases, prevs, dt_rows, lvl, mix, e3, e2, e1,
-                    interpret):
-    """Zero-feedback fast path: with every op feedback at 0 (the
-    reference examples' default — fm_voice.rs:16-31 ``feedback = 0.0``,
-    OP1 has none) the chain's only cross-sample dependency is the phase
-    recurrence; the sines and routing vectorize over the whole block.
-    Expressions and associations match ``tick`` (prev*0 adds exact
-    zeros there); the phase recurrence is bit-identical, the sine/route
-    math agrees with the chain kernel at FMA-formation level (~1 ulp
-    per op — the two programs compile separately, so the compiler may
-    fuse ``a*b + c`` differently; no reassociation beyond that).
-    e* are the level-folded envelope streams [B, V]."""
+def _fm_chain3_fast(phases, dt_rows, mix, e3, e2, e1):
+    """Zero-feedback path: expressions and associations match
+    :func:`fm_chain_step` (``prev*0`` adds exact zeros there); the phase
+    recurrence is bit-identical, the sine/route math agrees at
+    FMA-formation level (~1 ulp per op — the two programs compile
+    separately)."""
     B = e3.shape[0]
-    ph3, ph2, ph1, phc = fract_phase3(phases, dt_rows, B, interpret)
+    ph3, ph2, ph1, phc = fract_phase3(phases, dt_rows, B)
     mixr = mix[None, :]
     y3 = sin_turns(ph3) * e3
     a = y3 * (1.0 - mixr)
@@ -232,13 +91,11 @@ def _fm_chain3_fast(phases, prevs, dt_rows, lvl, mix, e3, e2, e1,
     return y1, phc, pv
 
 
-def _pivot_chain3_fast(phases, prevs, dt_rows, lvl, mix, e3, e2, e1,
-                       interpret):
-    """Pivot zero-feedback fast path: the RAW sine is the feedback/prev
-    carry, the enveloped signal drives routing (pivot_voice.rs:94-165);
-    with fb == 0 everything but the phase recurrence vectorizes."""
+def _pivot_chain3_fast(phases, dt_rows, mix, e3, e2, e1):
+    """Pivot zero-feedback path: the RAW sine is the feedback/prev carry,
+    the enveloped signal drives routing."""
     B = e3.shape[0]
-    ph3, ph2, ph1, phc = fract_phase3(phases, dt_rows, B, interpret)
+    ph3, ph2, ph1, phc = fract_phase3(phases, dt_rows, B)
     mixr = mix[None, :]
     y3 = sin_turns(ph3)
     a3 = y3 * e3
@@ -252,280 +109,58 @@ def _pivot_chain3_fast(phases, prevs, dt_rows, lvl, mix, e3, e2, e1,
     return out, phc, pv
 
 
-@functools.partial(jax.jit, static_argnames=("interpret", "fb_static"))
+def _chain3(step, fast, phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
+            fb_static):
+    e = (env3 * lvl[0], env2 * lvl[1], env1 * lvl[2])
+
+    def seq():
+        carry, y = lane_scan(
+            step, tuple(phases) + tuple(prevs),
+            (dt[0], dt[1], dt[2]) + e
+            + (fb[0][None], fb[1][None], fb[2][None], mix[None]))
+        return y, jnp.stack(carry[:3]), jnp.stack(carry[3:])
+
+    if dt.shape[1] == 1:
+        dt_rows = dt[:, 0, :]
+        if fb_static is True:
+            return fast(phases, dt_rows, mix, *e)
+        if fb_static is None:
+            return jax.lax.cond(jnp.all(fb == 0.0),
+                                lambda: fast(phases, dt_rows, mix, *e),
+                                seq)
+    return seq()
+
+
 def fm_chain3_scan(phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-                   interpret: bool = False, fb_static=None):
+                   fb_static=None):
     """One block of the fused 3-operator FM voice chain, all voices.
 
     Args: phases/prevs ``[3, V]`` (op3, op2, op1 order); dt ``[3, B, V]``
-    per-sample phase increments (pitch changes mid-block at note-on);
-    lvl/fb ``[3, V]`` block-constant per-op params; mix ``[V]`` (route,
-    clamped); env* ``[B, V]`` envelope streams.
-    Returns (y ``[B, V]``, phases', prevs').
+    per-sample phase increments (pitch changes mid-block at note-on) or
+    ``[3, 1, V]`` block-constant; lvl/fb ``[3, V]`` block-constant per-op
+    params; mix ``[V]`` (route, clamped); env* ``[B, V]`` envelope
+    streams.  Returns (y ``[B, V]``, phases', prevs').
 
     Levels are folded into the envelope streams here (one [B, V]
-    multiply each, outside the sequential kernel); the tick path uses
-    the same ``sin·(env·lvl)`` association so parity stays bit-exact.
+    multiply each, outside the sequential scan); ``tick`` uses the same
+    ``sin·(env·lvl)`` association so parity stays bit-exact.
 
-    Steady blocks with every feedback at 0 (the reference default) take
-    the vectorized zero-feedback branch — phase-exact, output within
-    ~1 ulp/op of the sequential kernel (FMA formation; see
-    :func:`_fm_chain3_fast`), only the phase recurrence stays
-    sequential.  ``fb_static`` lets the caller resolve the branch at
-    TRACE time when the feedback params are trace-time literals (the
-    common case: unconnected defaults / flattened-subgraph Consts):
-    True compiles ONLY the fast branch, False only the sequential
-    kernel, None emits the runtime ``lax.cond``.
+    Blocks with constant pitch and every feedback at 0 take the
+    zero-feedback path.  ``fb_static`` resolves that branch at TRACE time
+    when the feedback params are trace-time literals: True compiles ONLY
+    the zero-feedback path, False only the sequential scan, None emits the
+    runtime ``lax.cond``.
     """
-    B, V = env3.shape
-    if dt.shape[1] == 1 and B % 8 == 0:
-        dt_rows = dt[:, 0, :]
-        if fb_static is True:
-            return _fm_chain3_fast(phases, prevs, dt_rows, lvl, mix,
-                                   env3 * lvl[0], env2 * lvl[1],
-                                   env1 * lvl[2], interpret)
-        if fb_static is None:
-            return jax.lax.cond(
-                jnp.all(fb == 0.0),
-                lambda: _fm_chain3_fast(phases, prevs, dt_rows, lvl, mix,
-                                        env3 * lvl[0], env2 * lvl[1],
-                                        env1 * lvl[2], interpret),
-                lambda: _fm_chain3_pallas(phases, prevs, dt, lvl, fb, mix,
-                                          env3, env2, env1, interpret))
-    return _fm_chain3_pallas(phases, prevs, dt, lvl, fb, mix, env3, env2,
-                             env1, interpret)
+    return _chain3(fm_chain_step, _fm_chain3_fast, phases, prevs, dt, lvl,
+                   fb, mix, env3, env2, env1, fb_static)
 
 
-def _fm_chain3_pallas(phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-                      interpret: bool = False):
-    B, V = env3.shape
-    padV = (-V) % 128
-    # U need not divide B (activity guards mask the rounded-up tail);
-    # 64 is the measured VPU sweet spot for unrolled sample loops at
-    # production block sizes; small blocks keep U=8 so interpret-mode
-    # tests don't unroll hundreds of samples into one traced body.
-    # OSCEN_UNROLL_CAP lowers it (Mosaic compile time vs throughput).
-    U = pick_unroll(256, 64) if B + 2 >= 256 else 8
-    NI = -(-(B + 2) // U) * U  # pipeline prologue(2) + round up to U
-
-    def shifted(x, lag):
-        # row r's stream read at iteration i = its sample i - lag
-        return jnp.pad(x, ((lag, NI - B - lag), (0, padV)))
-
-    def p3(x):
-        return jnp.pad(x, ((0, 0), (0, padV)))
-
-    mix_row = jnp.pad(jnp.reshape(mix, (1, -1)), ((0, 0), (0, padV)))
-    if dt.shape[1] == 1:
-        # block-constant pitch: [3, 1, V] dt — pass [1, V] rows (no
-        # per-row lag shift needed for a constant), kernel hoists reads
-        dt_in = (p3(dt[0]), p3(dt[1]), p3(dt[2]))
-    else:
-        dt_in = (shifted(dt[0], 0), shifted(dt[1], 1), shifted(dt[2], 2))
-    y, ph, pv, _ = pl.pallas_call(
-        functools.partial(_chain3_pipe_kernel, B, U),
-        out_shape=(
-            jax.ShapeDtypeStruct((NI, V + padV), jnp.float32),
-            jax.ShapeDtypeStruct((3, V + padV), jnp.float32),
-            jax.ShapeDtypeStruct((3, V + padV), jnp.float32),
-            jax.ShapeDtypeStruct((1, V + padV), jnp.float32),
-        ),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 10,
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),) * 4,
-        interpret=interpret,
-    )(p3(phases), p3(prevs), *dt_in,
-      p3(fb), mix_row,
-      shifted(env3 * lvl[0], 0), shifted(env2 * lvl[1], 1),
-      shifted(env1 * lvl[2], 2))
-    return y[2:B + 2, :V], ph[:, :V], pv[:, :V]
-
-
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def fm_operator_scan(phase0, prev0, dt, pm, fb, env, lvl,
-                     interpret: bool = False):
-    """One block of the FM operator for all voices.
-
-    Args: phase0/prev0 ``[V]``; dt/pm/fb/env/lvl ``[B, V]`` per-sample.
-    Returns (y ``[B, V]``, phase', prev') — bit-parity with the tick.
-    """
-    B, V = dt.shape
-    padV = (-V) % 128
-    padB = (-B) % 8
-
-    def padBV(x):
-        return jnp.pad(x, ((0, padB), (0, padV)))
-
-    def row(v):
-        return jnp.pad(jnp.reshape(v, (1, -1)), ((0, 0), (0, padV)))
-
-    y, phase, prev = pl.pallas_call(
-        functools.partial(_kernel, B, pick_unroll(B)),
-        out_shape=(
-            jax.ShapeDtypeStruct((B + padB, V + padV), jnp.float32),
-            jax.ShapeDtypeStruct((1, V + padV), jnp.float32),
-            jax.ShapeDtypeStruct((1, V + padV), jnp.float32),
-        ),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 7,
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),) * 3,
-        interpret=interpret,
-    )(row(phase0), row(prev0), padBV(dt), padBV(pm), padBV(fb),
-      padBV(env), padBV(lvl))
-    return y[:B, :V], phase[0, :V], prev[0, :V]
-
-
-def _pivot3_pipe_kernel(B, U, ph_ref, prev_ref, dt3_ref, dt2_ref, dt1_ref,
-                        fb_ref, mix_ref, env3_ref, env2_ref, env1_ref,
-                        y_ref, ph_o, prev_o):
-    """Pivot operator chain, software-pipelined like ``_chain3_pipe``.
-
-    The pivot voice (examples/pivot/src/pivot_voice.rs:94-173) differs
-    from the fm-synth voice in where envelopes apply: the RAW sine feeds
-    each operator's own self-feedback (``prev`` carries y_raw), while the
-    modulation routing uses the enveloped/leveled signal (``s`` carries
-    y_raw·env·lvl; env streams arrive pre-multiplied by level).  Row
-    lags, activity masking and the steady-region split are identical to
-    the fm chain kernel.
-    """
-    fb = fb_ref[:]      # [3, V]
-    mix = mix_ref[:]    # [1, V]
-    zero = jnp.zeros_like(mix)
-    one = jnp.ones_like(mix)
-    rowid = jax.lax.broadcasted_iota(jnp.int32, fb.shape, 0)
-    # pm rows: (0, a3[i-1]·(1-mix), a2[i-2]·1) + (0, 0, a3[i-2]·mix)
-    w1 = jnp.concatenate([zero, 1.0 - mix, one], axis=0)
-    w2 = jnp.concatenate([zero, zero, mix], axis=0)
-    const_dt = dt3_ref.shape[0] == 1  # see _chain3_pipe_kernel
-    if const_dt:
-        dtc = jnp.concatenate([dt3_ref[:], dt2_ref[:], dt1_ref[:]],
-                              axis=0)
-
-    def sample(i, carry, masked):
-        ph, prev, s, s3_d2 = carry
-        env = jnp.concatenate([env3_ref[pl.ds(i, 1), :],
-                               env2_ref[pl.ds(i, 1), :],
-                               env1_ref[pl.ds(i, 1), :]], axis=0)
-        dt = dtc if const_dt else jnp.concatenate(
-            [dt3_ref[pl.ds(i, 1), :],
-             dt2_ref[pl.ds(i, 1), :],
-             dt1_ref[pl.ds(i, 1), :]], axis=0)
-        rot = jnp.concatenate([s[2:3, :], s[0:2, :]], axis=0)
-        pm = rot * w1 + s3_d2 * w2
-        y = sin_turns(ph + pm + prev * fb)   # raw sine -> feedback
-        ys = y * env                         # vca(env)·level (routing)
-        nph = ph + dt
-        nph = nph - jnp.trunc(nph)
-        if masked:
-            active = jnp.logical_and(i >= rowid, i < B + rowid)
-            ph = jnp.where(active, nph, ph)
-            nprev = jnp.where(active, y, prev)
-            ns = jnp.where(active, ys, s)
-        else:
-            ph = nph
-            nprev = y
-            ns = ys
-        carry = (ph, nprev, ns, s[0:1, :])
-        return carry, ys[2:3, :]
-
-    def make_body(masked):
-        def body(k, carry):
-            rows = []
-            for j in range(U):
-                carry, y1 = sample(k * U + j, carry, masked)
-                rows.append(y1)
-            y_ref[pl.ds(k * U, U), :] = jnp.concatenate(rows, axis=0)
-            return carry
-        return body
-
-    NI = y_ref.shape[0]
-    NB = NI // U
-    steady_lo = 1
-    steady_hi = min(B // U, NB)
-    z = jnp.zeros_like(prev_ref[:])
-    carry = (ph_ref[:], prev_ref[:], z, z[0:1, :])
-    if steady_hi <= steady_lo:
-        carry = jax.lax.fori_loop(0, NB, make_body(True), carry)
-    else:
-        carry = make_body(True)(0, carry)
-        carry = jax.lax.fori_loop(steady_lo, steady_hi,
-                                  make_body(False), carry)
-        for k in range(steady_hi, NB):
-            carry = make_body(True)(k, carry)
-    ph, prev, s, s3_d2 = carry
-    ph_o[:] = ph
-    prev_o[:] = prev
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "fb_static"))
 def pivot_chain3_scan(phases, prevs, dt, lvl, fb, mix, env3, env2, env1,
-                      interpret: bool = False, fb_static=None):
+                      fb_static=None):
     """One block of the fused pivot operator chain, all voices.
 
     Args as :func:`fm_chain3_scan`; ``prevs`` carries the RAW sine
-    history (the pivot feedback path), env streams are multiplied by the
-    op levels here (outside the sequential kernel).  The scaled-signal
-    pipeline rows rebuild inside the block (only raw history crosses
-    block boundaries — modulation routing is same-tick in the reference,
-    the pipeline lag is internal).
-    Returns (y ``[B, V]`` — the vca1 output, pre-filter; phases'; prevs').
-
-    Steady zero-feedback blocks (the reference default,
-    pivot/src/main.rs:69-84) take the vectorized fast branch —
-    phase-exact, output within ~1 ulp/op (FMA formation, see
-    :func:`_fm_chain3_fast`), only the phase recurrence stays
-    sequential.  ``fb_static`` resolves the branch at trace time
-    (see :func:`fm_chain3_scan`); None emits the runtime ``lax.cond``.
-    """
-    B, V = env3.shape
-    if dt.shape[1] == 1 and B % 8 == 0:
-        dt_rows = dt[:, 0, :]
-        if fb_static is True:
-            return _pivot_chain3_fast(phases, prevs, dt_rows, lvl, mix,
-                                      env3 * lvl[0], env2 * lvl[1],
-                                      env1 * lvl[2], interpret)
-        if fb_static is None:
-            return jax.lax.cond(
-                jnp.all(fb == 0.0),
-                lambda: _pivot_chain3_fast(phases, prevs, dt_rows, lvl,
-                                           mix, env3 * lvl[0],
-                                           env2 * lvl[1], env1 * lvl[2],
-                                           interpret),
-                lambda: _pivot_chain3_pallas(phases, prevs, dt, lvl, fb,
-                                             mix, env3, env2, env1,
-                                             interpret))
-    return _pivot_chain3_pallas(phases, prevs, dt, lvl, fb, mix, env3,
-                                env2, env1, interpret)
-
-
-def _pivot_chain3_pallas(phases, prevs, dt, lvl, fb, mix, env3, env2,
-                         env1, interpret: bool = False):
-    B, V = env3.shape
-    padV = (-V) % 128
-    U = pick_unroll(256, 64) if B + 2 >= 256 else 8  # see fm_chain3_scan
-    NI = -(-(B + 2) // U) * U
-
-    def shifted(x, lag):
-        return jnp.pad(x, ((lag, NI - B - lag), (0, padV)))
-
-    def p3(x):
-        return jnp.pad(x, ((0, 0), (0, padV)))
-
-    mix_row = jnp.pad(jnp.reshape(mix, (1, -1)), ((0, 0), (0, padV)))
-    if dt.shape[1] == 1:
-        dt_in = (p3(dt[0]), p3(dt[1]), p3(dt[2]))  # see fm_chain3_scan
-    else:
-        dt_in = (shifted(dt[0], 0), shifted(dt[1], 1), shifted(dt[2], 2))
-    y, ph, pv = pl.pallas_call(
-        functools.partial(_pivot3_pipe_kernel, B, U),
-        out_shape=(
-            jax.ShapeDtypeStruct((NI, V + padV), jnp.float32),
-            jax.ShapeDtypeStruct((3, V + padV), jnp.float32),
-            jax.ShapeDtypeStruct((3, V + padV), jnp.float32),
-        ),
-        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 10,
-        out_specs=(pl.BlockSpec(memory_space=pltpu.VMEM),) * 3,
-        interpret=interpret,
-    )(p3(phases), p3(prevs), *dt_in,
-      p3(fb), mix_row,
-      shifted(env3 * lvl[0], 0), shifted(env2 * lvl[1], 1),
-      shifted(env1 * lvl[2], 2))
-    return y[2:B + 2, :V], ph[:, :V], pv[:, :V]
+    history (the pivot feedback path).  Returns (y ``[B, V]`` — the vca1
+    output, pre-filter; phases'; prevs')."""
+    return _chain3(pivot_chain_step, _pivot_chain3_fast, phases, prevs, dt,
+                   lvl, fb, mix, env3, env2, env1, fb_static)

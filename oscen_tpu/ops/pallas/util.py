@@ -1,4 +1,4 @@
-"""Shared helpers for the sequential Pallas kernels."""
+"""Kernel-route selection shared by the Pallas kernels."""
 
 from __future__ import annotations
 
@@ -6,43 +6,26 @@ import os
 
 
 def pallas_mode():
-    """(use_pallas, interpret) for the batched node fast paths.
+    """``(use_kernel, interpret)`` for the batched node fast paths.
 
-    TPU runs the kernels natively.  Setting ``OSCEN_PALLAS_INTERPRET=1``
-    runs them in interpret mode on other backends — used by the CPU-mesh
-    multichip tests to exercise the exact kernel code path under
-    ``shard_map`` without TPU hardware."""
+    A GPU runs the compiled Triton kernels, always.  On the CPU backend
+    ``OSCEN_PALLAS_INTERPRET=1`` runs the same kernels in interpret mode
+    (a test route: it exercises the exact kernel code, including under a
+    virtual-device mesh); without it the CPU takes the plain XLA path.
+    """
     import jax
-    if jax.default_backend() == "tpu":
+    backend = jax.default_backend()
+    if backend == "gpu":
         return True, False
-    if os.environ.get("OSCEN_PALLAS_INTERPRET") == "1":
+    if backend == "cpu" and os.environ.get("OSCEN_PALLAS_INTERPRET") == "1":
         return True, True
     return False, False
 
 
-def pick_unroll(n: int, max_u: int = 64) -> int:
-    """Largest power of two <= ``max_u`` dividing ``n``.
-
-    The per-sample kernels unroll their fori_loop body to amortize loop
-    overhead; measured on a v5e the additive kernel improves monotonically
-    up to U=64 (40.5 -> 8-12 us per 1024-sample block) and regresses
-    beyond (23 us at U=128 — code size / scheduling), so 64 is the cap.
-
-    ``OSCEN_UNROLL_CAP`` overrides ``max_u`` globally — Mosaic compile
-    time grows superlinearly with the unrolled body, so a lower cap
-    trades steady-state throughput for startup latency (tools/uabl.py).
-    """
-    cap = os.environ.get("OSCEN_UNROLL_CAP")
-    if cap is not None:
-        try:
-            cap_i = int(cap)
-        except ValueError as e:
-            raise ValueError(
-                f"OSCEN_UNROLL_CAP must be an integer, got {cap!r}") from e
-        max_u = min(max_u, max(1, cap_i))
+def pick_unroll(n: int, max_u: int) -> int:
+    """Largest power of two <= ``max_u`` dividing ``n`` (the number of
+    time steps a kernel's loop body runs back to back)."""
     u = 1
-    while u < max_u and n % (u * 2) == 0:
+    while u * 2 <= max_u and n % (u * 2) == 0:
         u *= 2
-    while u > max_u:  # non-power-of-two caps: clamp down to a divisor
-        u //= 2
     return u

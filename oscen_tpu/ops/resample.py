@@ -1,11 +1,11 @@
 """Fixed-ratio resampler kernels for multirate (oversampled) regions.
 
-TPU-native counterparts of the reference's kernel families
+Counterparts of the reference's kernel families
 (/root/reference/oscen-lib/src/resample/): Latch (zero-order hold), Linear,
 Sinc FIR (23-tap Kaiser halfband, polyphase, cascaded 2x stages) and IIR
 halfband (two-branch 1st-order allpass cascade).  Same coefficients, same
 latencies; the per-sample history loops become whole-block convolutions
-(FIR) and associative scans (IIR allpass).
+(FIR) and sequential-exact lane scans (IIR allpass).
 
 Every kernel is expressed as ``(init_state, process_block)``:
 ``process_block(state, x) -> (state, y)`` maps ``[B,...]`` to ``[B*N,...]``
@@ -16,7 +16,7 @@ over trailing channel axes.
 
 from __future__ import annotations
 
-import os
+import functools
 import math
 from typing import Tuple
 
@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from .pallas.recurrence import lane_scan
 
 
 # --------------------------------------------------------------------- #
@@ -65,29 +66,14 @@ def _causal_fir(x, hist, taps):
     ``hist``: [len(taps)-1, ...] previous inputs (most recent last).
     Returns (y [B,...], new_hist).
 
-    Two lowerings, identical math: the default shifted-add form (t
-    slice+FMA ops, XLA fuses the chain) and an ``lax.conv`` form
-    (``OSCEN_FIR_CONV=1``) for A/B on hardware — the saturator pays
-    ~15 µs/block at the 4x sinc boundary and tools/monobench.py
-    attributes whether the FIR lowering or the region machinery is the
-    cost."""
+    Shifted-add form: t slice+FMA ops that XLA fuses into one pass.
+    """
     t = len(taps)
     z = jnp.concatenate([hist, x], axis=0)
-    if os.environ.get("OSCEN_FIR_CONV", "0") == "1" and z.ndim <= 2:
-        flat = z if z.ndim == 2 else z[:, None]          # [B+t-1, C]
-        lhs = jnp.moveaxis(flat, 0, 1)[:, None, :]       # [C, 1, B+t-1]
-        rhs = jnp.asarray(taps, jnp.float32)[::-1][None, None, :]
-        out = jax.lax.conv_general_dilated(
-            lhs, rhs, window_strides=(1,), padding="VALID",
-            precision=jax.lax.Precision.HIGHEST)         # [C, 1, B]
-        y = jnp.moveaxis(out[:, 0, :], 1, 0)
-        y = y if z.ndim == 2 else y[:, 0]
-        y = y.astype(x.dtype)
-    else:
-        y = jnp.zeros_like(x)
-        for k in range(t):
-            y = y + taps[k] * jax.lax.slice_in_dim(
-                z, t - 1 - k, t - 1 - k + x.shape[0], axis=0)
+    y = jnp.zeros_like(x)
+    for k in range(t):
+        y = y + taps[k] * jax.lax.slice_in_dim(
+            z, t - 1 - k, t - 1 - k + x.shape[0], axis=0)
     new_hist = z[-(t - 1):] if t > 1 else hist
     return y, new_hist
 
@@ -237,92 +223,23 @@ class _Halfband2xDown:
 
 class SincUpFir:
     """Cascaded halfband 2x up stages for N ∈ {1,2,4,8}
-    (reference sinc_fir.rs:146-206), evaluated phase-major on TPU.
-
-    Mirror of :class:`SincDownFir`'s round-4 treatment (commit 8a65417):
-    the interleaved form pays a ``stack+reshape`` relayout per stage on
-    TPU while the 12 tap-FMAs are nearly free, so each stage instead
-    maps M phase rows to 2M phase rows of pure static-shift FMAs — an
-    M→2M stage writes output phase ``2p`` as the even-branch FIR
-    ``Σ_j taps[j]·u[(p-j) mod M][·+(p-j)//M]`` (accumulation order
-    j=0..11, identical to ``_causal_fir``) and phase ``2p+1`` as the
-    delayed-center odd branch ``gain·u[(p-5) mod M][·+(p-5)//M]`` — and
-    the single interleave happens once at the cascade output.
-    Bit-identical to the interleaved form (same values, same per-sample
-    accumulation order; the interleave is data movement).
-
-    The layout choice is FROZEN at construction time
-    (``OSCEN_SINC_PHASEMAJOR`` read once in ``__init__``, like
-    SincDownFir): checkpoints containing sinc-up state are
-    layout-specific."""
-
-    HIST = 12  # per-phase history rows kept per stage (≥ max back-shift)
+    (reference sinc_fir.rs:146-206), each stage an interleaved polyphase
+    FIR over the whole block."""
 
     def __init__(self, n: int):
         self.n = n
         self.k = _stages(n)
         self.stages = [_Halfband2xUp() for _ in range(self.k)]
-        env = os.environ.get("OSCEN_SINC_PHASEMAJOR")
-        if env is not None:
-            self.phase_major = env == "1"
-        else:
-            self.phase_major = jax.default_backend() != "cpu"
 
     def init_state(self, like=None):
-        if not self.phase_major:
-            return tuple(s.init_state(like) for s in self.stages)
-        shape = jnp.shape(like)[1:] if like is not None else ()
-        state = []
-        m = 1
-        for _ in range(self.k):
-            state.append(tuple(jnp.zeros((self.HIST,) + shape, jnp.float32)
-                               for _ in range(m)))
-            m *= 2
-        return tuple(state)
-
-    def _stage(self, hists, phases):
-        """One M→2M-phase halfband-up stage (phase-major)."""
-        L = self.HIST
-        b = phases[0].shape[0]
-        m = len(phases)
-        z = [jnp.concatenate([h, p], axis=0)
-             for h, p in zip(hists, phases)]
-        taps = _Halfband2xUp.EVEN_TAPS
-        gain = _Halfband2xUp.ODD_GAIN
-
-        def at(r, shift_units):
-            t = r + shift_units
-            ph, q = t % m, t // m  # floor div/mod handle negatives
-            return jax.lax.slice_in_dim(z[ph], L + q, L + q + b, axis=0)
-
-        out = []
-        for p in range(m):
-            y = jnp.zeros_like(phases[0])
-            for j in range(12):
-                y = y + taps[j] * at(p, -j)
-            out.append(y)                               # phase 2p (even)
-            out.append(gain * at(p, -_Halfband2xUp.ODD_DELAY))  # 2p+1
-        new_hists = tuple(s[-L:] for s in z)
-        return new_hists, out
+        return tuple(s.init_state(like) for s in self.stages)
 
     def process_block(self, state, x):
-        if self.k == 0:
-            return state, x
-        if not self.phase_major:
-            new = []
-            for st, stage in zip(state, self.stages):
-                st, x = stage.process_block(st, x)
-                new.append(st)
-            return tuple(new), x
-        phases = [x]
-        new_state = []
-        for s in range(self.k):
-            hists, phases = self._stage(state[s], phases)
-            new_state.append(hists)
-        n, b = self.n, x.shape[0]
-        # one interleave: n phase rows -> [n*b, ...]
-        y = jnp.reshape(jnp.stack(phases, axis=1), (n * b,) + x.shape[1:])
-        return tuple(new_state), y
+        new = []
+        for st, stage in zip(state, self.stages):
+            st, x = stage.process_block(st, x)
+            new.append(st)
+        return tuple(new), x
 
     def latency_samples(self) -> int:
         k = len(self.stages)
@@ -330,117 +247,27 @@ class SincUpFir:
 
 
 class SincDownFir:
-    """Cascaded halfband 2x down stages, evaluated phase-major.
+    """Cascaded halfband 2x down stages (reference sinc_fir.rs:84-144),
+    each computed polyphase at its low rate (see :class:`_Halfband2xDown`).
 
-    The interleaved-stream form pays ~3 µs per stage in deinterleave
-    relayouts and inter-stage glue on TPU while the tap FMAs are nearly
-    free (tools/downabl.py: 13 shifted FMAs over [4B] = 0.84 µs, the
-    two-stage cascade = 16.3 µs).  So the input is deinterleaved ONCE
-    into its N phase streams ([B]-length rows) and every stage is pure
-    static-shift FMAs over phase rows: a stage from 2M phases to M maps
-    tap j of output phase r to input phase (r-j) mod M at shift
-    (r-j)//M.  Per-output-sample accumulation order is unchanged
-    (j=0..5, center, j=6..11), so the result is bit-identical to the
-    prior interleaved form.  Parity with the reference's per-sample loop
-    (sinc_fir.rs:84-144) is tolerance-level only: the reference
-    accumulates the center tap first and symmetric pairs as
-    ``(left+right)*tap`` — a different float op order.
-
-    The layout choice (phase-major vs interleaved) is FROZEN at
-    construction time — ``OSCEN_SINC_PHASEMAJOR`` is read once in
-    ``__init__`` and must not change between ``init_state`` and
-    ``process_block`` (the two layouts carry different state pytrees).
-    Consequence: checkpoints containing sinc-down state are
-    layout-specific; a checkpoint saved with the TPU default
-    (phase-major) restores on CPU only if the graph is compiled with
-    ``OSCEN_SINC_PHASEMAJOR=1`` set before construction."""
-
-    HIST = 12  # per-phase history rows kept per stage (≥ max back-shift)
+    Parity with the reference's per-sample loop is tolerance-level only:
+    the reference accumulates the center tap first and symmetric pairs as
+    ``(left+right)*tap`` — a different float op order."""
 
     def __init__(self, n: int):
         self.n = n
         self.k = _stages(n)
         self.stages = [_Halfband2xDown() for _ in range(self.k)]
-        # Phase-major on TPU, stage-interleaved on CPU — same per-sample
-        # op order either way (bit-identical in exact arithmetic); the
-        # split exists because XLA CPU's thread-partitioned fused loops
-        # contract FMAs differently in their scalar epilogues depending
-        # on array length, which the phase-major slices' misaligned
-        # offsets expose as 1-ulp block-size variance, while TPU
-        # vectorization is uniform across the block (no scalar
-        # epilogues).  CPU phase-major block-size invariance for static
-        # shapes is pinned by test_multirate_boundary_invariance's
-        # sinc_phasemajor parametrization (tests/test_block_invariance.py).
-        env = os.environ.get("OSCEN_SINC_PHASEMAJOR")
-        if env is not None:
-            self.phase_major = env == "1"
-        else:
-            self.phase_major = jax.default_backend() != "cpu"
-
-    def _phase_major(self) -> bool:
-        return self.phase_major
 
     def init_state(self, like=None):
-        shape = jnp.shape(like)[1:] if like is not None else ()
-        if not self._phase_major():
-            return tuple(s.init_state(like) for s in self.stages)
-        state = []
-        m = self.n
-        for _ in range(self.k):
-            state.append(tuple(jnp.zeros((self.HIST,) + shape, jnp.float32)
-                               for _ in range(m)))
-            m //= 2
-        return tuple(state)
-
-    def _stage(self, hists, phases):
-        """One 2M→M-phase halfband-down stage.  ``hists``: one [HIST,...]
-        array per input phase; ``phases``: 2M arrays of [B,...]."""
-        L = self.HIST
-        b = phases[0].shape[0]
-        z = [jnp.concatenate([h, p], axis=0) for h, p in zip(hists, phases)]
-        even, odd = z[0::2], z[1::2]
-        m = len(even)
-        taps = _Halfband2xDown.EVEN_TAPS
-        center = _Halfband2xDown.CENTER
-
-        def at(streams, r, shift_units):
-            # sample (m*n + r + shift_units) of the rate-M stream whose
-            # phases are ``streams`` → phase (r+shift) mod m, row offset
-            # (r+shift)//m  (negative → history rows)
-            t = r + shift_units
-            ph, q = t % m, t // m  # floor div/mod handle negatives
-            return jax.lax.slice_in_dim(streams[ph], L + q, L + q + b,
-                                        axis=0)
-
-        out = []
-        for r in range(m):
-            y = jnp.zeros_like(phases[0])
-            for j in range(12):
-                if j == 6:
-                    y = y + center * at(odd, r, -6)
-                y = y + taps[j] * at(even, r, -j)
-            out.append(y)
-        new_hists = tuple(s[-L:] for s in z)
-        return new_hists, out
+        return tuple(s.init_state(like) for s in self.stages)
 
     def process_block(self, state, x):
-        n, b = self.n, x.shape[0] // self.n
-        if self.k == 0:
-            return state, x
-        if not self._phase_major():
-            new = []
-            for st, stage in zip(state, self.stages):
-                st, x = stage.process_block(st, x)
-                new.append(st)
-            return tuple(new), x
-        # one deinterleave: [n*b, ...] -> n contiguous phase rows [b, ...]
-        ph = jnp.moveaxis(jnp.reshape(x, (b, n) + x.shape[1:]), 1, 0)
-        phases = [ph[r] for r in range(n)]
-        new_state = []
-        for s in range(self.k):
-            hists, phases = self._stage(state[s], phases)
-            new_state.append(hists)
-        return tuple(new_state), phases[0]
+        new = []
+        for st, stage in zip(state, self.stages):
+            st, x = stage.process_block(st, x)
+            new.append(st)
+        return tuple(new), x
 
     def latency_samples(self) -> int:
         k = self.k
@@ -450,22 +277,20 @@ class SincDownFir:
 # --------------------------------------------------------------------- #
 # IIR halfband (reference resample/halfband_iir.rs)
 # --------------------------------------------------------------------- #
-def _allpass_block(a: float, x, y_prev, x_prev):
-    """First-order allpass y[n] = a (x[n] - y[n-1]) + x[n-1] over a block
-    with the reference's exact per-sample op order
-    (halfband_iir.rs:24-63) — sequential-exact, so oversampled regions
-    stay block-size invariant (an associative-scan form reassociates and
-    makes output depend on where block boundaries fall).
-    Returns (y, y_last, x_last)."""
-    import jax
-
-    def step(carry, xt):
-        yp, xp = carry
-        y = a * (xt - yp) + xp
-        return (y, xt), y
-
-    (y_last, x_last), y = jax.lax.scan(step, (y_prev, x_prev), x)
-    return y, y_last, x_last
+def allpass_cascade_step(betas, carry, x):
+    """One sample through a cascade of first-order allpasses
+    ``y = a (x - y_prev) + x_prev`` with the reference's exact op order
+    (halfband_iir.rs:24-63); ``carry`` is the per-stage
+    ``(x_prev, y_prev)`` histories."""
+    xps, yps = carry
+    nxp, nyp = [], []
+    cur = x
+    for a, xp, yp in zip(betas, xps, yps):
+        y = a * (cur - yp) + xp
+        nxp.append(cur)
+        nyp.append(y)
+        cur = y
+    return (tuple(nxp), tuple(nyp)), cur
 
 
 class _IirHalfband2x:
@@ -481,34 +306,13 @@ class _IirHalfband2x:
         }
 
     def _branch(self, betas, xs, x_prevs, y_prevs):
-        from .pallas.util import pallas_mode
-        use, interp = pallas_mode()
-        if use:
-            # sequential-exact Pallas cascade (exact op order, so
-            # block-size invariance holds) — a plain lax.scan measures
-            # ~3.6 µs per ITERATION on TPU (14.8 ms per 4096-sample
-            # block vs ~25 µs through the kernel; tools/monobench.py)
-            from .pallas.iir import allpass_cascade_scan
-            S = len(betas)
-            flat = jnp.reshape(xs, (xs.shape[0], -1))
-            a = jnp.broadcast_to(
-                jnp.asarray(betas, jnp.float32)[:, None],
-                (S, flat.shape[1]))
-            xp = jnp.stack([jnp.reshape(v, (-1,)) for v in x_prevs])
-            yp = jnp.stack([jnp.reshape(v, (-1,)) for v in y_prevs])
-            y, xpo, ypo = allpass_cascade_scan(flat, a, xp, yp,
-                                               interpret=interp)
-            shp = xs.shape[1:]
-            return (jnp.reshape(y, xs.shape),
-                    tuple(jnp.reshape(xpo[s], shp) for s in range(S)),
-                    tuple(jnp.reshape(ypo[s], shp) for s in range(S)))
-        new_xp, new_yp = [], []
-        y = xs
-        for a, xp, yp in zip(betas, x_prevs, y_prevs):
-            y, y_last, x_last = _allpass_block(a, y, yp, xp)
-            new_xp.append(x_last)
-            new_yp.append(y_last)
-        return y, tuple(new_xp), tuple(new_yp)
+        # sequential-exact (exact op order, so oversampled regions stay
+        # block-size invariant; an associative-scan form reassociates and
+        # makes output depend on where block boundaries fall)
+        (new_xp, new_yp), y = lane_scan(
+            functools.partial(allpass_cascade_step, tuple(betas)),
+            (tuple(x_prevs), tuple(y_prevs)), xs)
+        return y, new_xp, new_yp
 
     def up(self, state, x):
         ya, axp, ayp = self._branch(BRANCH_A_BETAS, x, state["a_x"],

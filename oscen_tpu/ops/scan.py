@@ -1,10 +1,9 @@
 """Parallel-in-time primitives for per-sample recurrences.
 
 The reference evaluates every IIR/one-pole/phase recurrence one sample at a
-time (SignalProcessor::process, graph/traits.rs:27-52).  On TPU the time axis
-is the vector axis, so linear recurrences are reformulated as *associative
-scans over affine maps* and phase accumulation as prefix sums — the central
-TPU reformulation (SURVEY §5.7).
+time (SignalProcessor::process, graph/traits.rs:27-52).  Where the time axis
+should be parallel, linear recurrences are reformulated as *associative
+scans over affine maps* and phase accumulation as prefix sums (SURVEY §5.7).
 
 ``affine_scan`` solves ``z[t] = A[t] @ z[t-1] + b[t]`` for all t in
 O(log B) depth using ``jax.lax.associative_scan`` over the monoid
@@ -31,8 +30,8 @@ def affine_scan(A, b, z0):
     Returns:
       z: ``[B, S]`` where ``z[t]`` is the state *after* step t.
     """
-    # DSP state recurrences need true f32 accumulation: on TPU the default
-    # matmul precision is bf16, which is audible — force HIGHEST.
+    # DSP state recurrences need true f32 accumulation: a reduced-precision
+    # default (TF32 on a GPU) is audible — force HIGHEST.
     mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
     def combine(left, right):
@@ -48,8 +47,8 @@ def affine_scan(A, b, z0):
 
 def affine_scan_2x2(a00, a01, a10, a11, b0, b1, z0, z1):
     """Specialized 2-state affine scan with the 2x2 composition unrolled
-    into elementwise VPU ops (a batched [B,...,2,2] matmul lowers to an
-    awkward tiny dot_general on TPU; this form stays fully elementwise).
+    into elementwise ops (a batched [B,...,2,2] matmul lowers to a tiny
+    dot_general; this form stays fully elementwise).
 
     Solves z[t] = A[t] z[t-1] + b[t]; returns (z0s, z1s) with the state
     *after* each step.  All args broadcast over trailing dims.
@@ -91,6 +90,15 @@ def affine_scan_scalar(a, b, z0):
     return a_acc * z0 + b_acc
 
 
+def phase_step(p, d):
+    """One tick of the wrapped phase accumulator: emit the phase, then
+    ``p += dt; p -= floor(p)`` (``rem_euclid(1.0)``)."""
+    out = p
+    p = p + d
+    p = p - jnp.floor(p)
+    return p, out
+
+
 def exact_wrapped_phase(phase0, dt):
     """Sequential-exact wrapped phase accumulation.
 
@@ -100,32 +108,19 @@ def exact_wrapped_phase(phase0, dt):
     fall.  The prefix-sum form (:func:`wrapped_phase_cumsum`) reassociates
     the adds and drifts ~1e-3 RMS per rendered second.
 
-    On TPU this dispatches to the Pallas phase kernel (sequential in time,
-    lanes across trailing dims); elsewhere it is a ``lax.scan``.
+    Runs as :func:`~oscen_tpu.ops.pallas.recurrence.lane_scan` over the
+    trailing dims as lanes (the Triton kernel on a GPU, ``lax.scan`` on
+    the CPU).
 
     Returns ``(before [B, ...], carry [...])`` where ``before[t]`` is the
     wrapped phase *prior* to adding ``dt[t]``.
     """
-    trailing = dt.shape[1:]
+    from .pallas.recurrence import lane_scan
+    B, trailing = dt.shape[0], dt.shape[1:]
     p0 = jnp.broadcast_to(jnp.asarray(phase0, jnp.float32), trailing)
-    if jax.default_backend() == "tpu":
-        from .pallas.phase import phase_scan
-        B = dt.shape[0]
-        V = 1
-        for d in trailing:
-            V *= d
-        before, carry = phase_scan(jnp.reshape(p0, (V,)),
-                                   jnp.reshape(dt, (B, V)))
-        return jnp.reshape(before, dt.shape), jnp.reshape(carry, trailing)
-
-    def step(p, d):
-        out = p
-        p = p + d
-        p = p - jnp.floor(p)
-        return p, out
-
-    carry, before = jax.lax.scan(step, p0, dt)
-    return before, carry
+    carry, before = lane_scan(phase_step, jnp.reshape(p0, (-1,)),
+                              jnp.reshape(dt, (B, -1)))
+    return jnp.reshape(before, dt.shape), jnp.reshape(carry, trailing)
 
 
 def wrapped_phase_cumsum(phase0, dt):

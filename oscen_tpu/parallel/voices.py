@@ -2,7 +2,7 @@
 
 The reference is single-threaded per graph; its voice axis is a node array
 looped per sample (SURVEY §2.7).  Here voices are a leading batch axis, and
-scale-out beyond one chip shards that axis over ICI with
+scale-out beyond one card shards that axis over the device mesh with
 ``jax.sharding.NamedSharding`` — the FanIn mix-down edge (a sum over the
 voice axis) lowers to an XLA all-reduce (psum) automatically.
 """
@@ -38,10 +38,10 @@ def shard_compiled_state(compiled, mesh: Mesh, voice_nodes=None,
 
     In block mode this also switches execution to SPMD ``shard_map``
     over the mesh (``CompiledGraph.enable_sharding``): each device runs
-    the block body — including the Pallas voice kernels — on its local
-    voice shard, per-block inputs and event buffers are sliced per
-    device, and the FanIn mix-down finishes with an explicit ``psum``
-    over ICI.  Sample mode keeps placement-only sharding (GSPMD inserts
+    the block body — including the voice kernels — on its local voice
+    shard, per-block inputs and event buffers are sliced per device, and
+    the FanIn mix-down finishes with an explicit ``psum`` (NCCL across
+    GPUs).  Sample mode keeps placement-only sharding (GSPMD inserts
     the collectives)."""
     if getattr(compiled, "mode", None) == "block":
         compiled.enable_sharding(mesh, axis_name)

@@ -1,9 +1,9 @@
 """Deployable model bundles — the build-tooling analogue of the
 reference's ``xtask bundle`` (SURVEY §1 L7: the reference packages its
-apps as deployable CLAP/VST3 bundles via cargo xtask,
-/root/reference/xtask).  A TPU-serving framework's deployable unit is a
-*compiled graph plus its state*: this module saves the lowered IR, the
-full engine checkpoint (device state incl. published assets, host
+apps as deployable CLAP/VST3 bundles via its ``xtask`` crate).  An
+accelerator-serving framework's deployable unit is a *compiled graph
+plus its state*: this module saves the lowered IR, the full engine
+checkpoint (device state incl. published assets, host
 params/ramps, control state, pending events) and a manifest, and loads
 it back into a ready-to-render :class:`CompiledGraph` on any machine
 with oscen_tpu installed — no model-building code required.

@@ -4,7 +4,7 @@ The reference's ``nih_params;`` directive emits a ``#[derive(Params)]``
 struct of ``FloatParam``s from the graph's value inputs plus a
 ``sync_to(graph)`` per-block applier
 (/root/reference/oscen-graph-compiler/src/codegen/mod.rs:981-1152).  This
-module is that struct for the TPU build: :func:`nih_params` builds a
+module is that struct for this build: :func:`nih_params` builds a
 :class:`NihParams` from a :class:`~oscen_tpu.graph.builder.Graph`'s
 ``param_specs()``, with the same semantics:
 

@@ -1,7 +1,7 @@
 """Conservative voice-capacity classes — host-side kernel gating.
 
 The reference skips inactive voices per sample via ``is_active``
-(graph/traits.rs:44-52).  On TPU the voices are a batch axis computed
+(graph/traits.rs:44-52).  Here the voices are a batch axis computed
 branchlessly, and learning that a release tail finished would need a
 device→host sync per block.  Instead, the host already knows everything
 it needs *conservatively*: which voices hold notes (the allocator's
@@ -20,9 +20,8 @@ the smallest class that fits every *maybe-live* voice:
   overflow the current class (so allocator stealing behaves exactly as
   the full-capacity graph), new slots start from pristine init state.
 
-At 256 voices the fused additive kernel measures ~21 µs/block vs ~11.5
-at ≤128 voices (PERF.md) — a ~45% kernel saving whenever at most half
-the voices are live, for zero device syncs.
+The voice kernels' work scales with the class size, so a smaller class
+saves device time whenever few voices are live, for zero device syncs.
 """
 
 from __future__ import annotations

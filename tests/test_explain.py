@@ -1,9 +1,9 @@
 """CompiledGraph.explain(): the perf contract is inspectable.
 
-VERDICT r04 weak #4: fast-path engagement (const-dt, zero-feedback,
-epilogue fusion, island classification) lived only in trace-time branches
+Fast-path engagement (const-dt, zero-feedback, fan-in fusion, island
+classification) lives in trace-time branches
 and runtime ``lax.cond`` predicates — a user flipping an FM feedback param
-to 1e-6 silently lost the vectorized branch with no way to see why.  The
+to 1e-6 silently loses the vectorized branch; explain() shows why.  The
 reference exposes the analogous structure as public generated fields
 (examples/electric-piano/src/main.rs:364-368).
 """
@@ -44,8 +44,7 @@ def test_fm_synth_fast_path_on(monkeypatch):
 
 def test_fm_feedback_disengages_fast_path(monkeypatch):
     """A voice whose feedback default is nonzero reports engaged=False;
-    flipping a live feedback param from 0 to nonzero flips the report —
-    the exact "silent 1.4x loss" VERDICT r04 weak #4 asked to surface."""
+    flipping a live feedback param from 0 to nonzero flips the report."""
     monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", "1")
 
     def voice(fb_default=None, fb_input=False):
@@ -85,7 +84,7 @@ def test_fm_feedback_disengages_fast_path(monkeypatch):
     c2 = synth(fb_input=True).compile(48000.0, block_size=64, mode="block")
     e2 = [x for x in c2.explain() if x.get("kernel") == "fm_chain3"][0]
     assert e2["engaged"] is True
-    c2.set_value("fb", 1e-6)  # tiny but nonzero: the silent 1.4x loss
+    c2.set_value("fb", 1e-6)  # tiny but nonzero: the branch is lost
     e3 = [x for x in c2.explain() if x.get("kernel") == "fm_chain3"][0]
     assert e3["engaged"] is False
 
@@ -118,17 +117,10 @@ def test_electric_piano_explain(monkeypatch):
     g = build_electric_piano(8)
     c = g.compile(48000.0, block_size=64, mode="block")
     entries = c.explain()
-    adds = [e for e in entries
-            if str(e.get("kernel", "")).startswith("additive_voice_")]
+    adds = [e for e in entries if e.get("kernel") == "additive_voice"]
     assert adds, entries
-    assert adds[0]["kernel"] == "additive_voice_v4"  # current default
     assert adds[0]["fanin_mixdown_fused"] is True
-    # selecting the parity kernel shows up in the report
-    monkeypatch.setenv("OSCEN_ADDITIVE_KERNEL", "parity")
-    entries2 = c.explain()
-    adds2 = [e for e in entries2
-             if str(e.get("kernel", "")).startswith("additive_voice_")]
-    assert adds2[0]["kernel"] == "additive_voice_parity"
+    assert _entry(entries, adds[0]["node"], path="batched")
 
 
 def test_literal_params_fold_modulation_path(monkeypatch):
@@ -158,7 +150,7 @@ def test_literal_params_fold_modulation_path(monkeypatch):
     b, sb = run(False)
     np.testing.assert_array_equal(a, b)
 
-    # explain (TPU batched path via interpret-mode Pallas): with the
+    # explain (batched kernel path via interpret mode): with the
     # literal default the cutoff-mod output is a proven constant and the
     # filter compiles the hoisted coefficient path with NO runtime check
     monkeypatch.setenv("OSCEN_LITERAL_PARAMS", "1")
@@ -178,7 +170,8 @@ def test_literal_params_fold_modulation_path(monkeypatch):
 def test_twin_peaks_fused_kernel_noted(monkeypatch):
     """twin_peaks' fused build reports the single 2-lane lp18_scan
     launch; the two-node build reports two 1-lane launches — the launch
-    count IS the 1.9x (tools/lp18abl.py), so it must be inspectable."""
+    count is the cost of the sequential filter, so it must be
+    inspectable."""
     monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", "1")
     from oscen_tpu.models.twin_peaks import build_twin_peaks
 

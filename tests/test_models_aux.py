@@ -172,10 +172,10 @@ def test_twin_peaks_fused_matches_two_node(monkeypatch):
     lanes) matches the reference-structure two-node build.  Exercises
     live param changes so the recompute-on-change cadence matches too.
 
-    On the kernel path (TPU native / interpret) the match is
-    BIT-IDENTICAL: lp18_scan pads the lane axis to 128 in both builds,
-    so every op — including tanh — runs on the same shapes and the two
-    filters occupy lanes that are elementwise independent.  The CPU
+    On the kernel path (interpret mode here) the match is
+    BIT-IDENTICAL: both builds run the same lane scan, so every op —
+    including tanh — runs on the same row shapes and the two filters
+    occupy lanes that are elementwise independent.  The CPU
     lax.scan fallback differs at the last ulp only: XLA CPU's tanh
     emits different code for a (2,)-vector than for a scalar, so the
     sample/scan comparison uses a ≤1e-6 bound instead."""
@@ -517,10 +517,10 @@ def test_oscilloscope_auto_period_detection():
 
 def test_lp18_block_path_parity_and_invariance():
     """LP18's block path (nonlinear tanh recurrence -> sequential-exact
-    Pallas kernel on TPU / identical lax.scan elsewhere) is bit-exactly
+    lane-scan kernel on a GPU / identical lax.scan on the CPU) is bit-exactly
     block-size invariant, matches sample mode within the XLA-contraction
     tolerance class (~1e-7: the scan-compiled body contracts FMAs
-    differently than the fused whole-graph sample scan), and the Pallas
+    differently than the fused whole-graph sample scan), and the
     kernel (interpret mode) agrees with the lax.scan replay."""
     import os
     import numpy as np
@@ -544,16 +544,15 @@ def test_lp18_block_path_parity_and_invariance():
     np.testing.assert_array_equal(a, run("block", 128))   # bit-invariant
     s = run("sample", 512)
     assert np.abs(a - s).max() < 1e-6, np.abs(a - s).max()
-    k = run("block", 512, interpret=True)   # the TPU kernel code path
+    k = run("block", 512, interpret=True)   # the kernel code path
     assert np.abs(a - k).max() < 1e-6, np.abs(a - k).max()
 
 
 def test_scalar_fm_operator_uses_kernel_path():
     """A standalone (count==1) FmOperator routes through the batched
-    Pallas kernel with a width-1 instance axis — block-size
+    lane-scan kernel with a width-1 instance axis — block-size
     bit-invariant and within kernel/scan tolerance of the per-sample
-    fallback (it previously fell to the default per-sample scan on
-    TPU, the 1.5x-RT cliff class)."""
+    scan the CPU runs without a kernel route."""
     import os
     import numpy as np
     from oscen_tpu import FmOperator, Graph

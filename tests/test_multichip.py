@@ -52,7 +52,7 @@ def test_sharded_state_placement():
 
 @pytest.mark.slow  # >10s on the judge's CPU; slow lane: pytest -m slow
 def test_sharded_block_mode_runs_pallas_kernels(monkeypatch):
-    """The actual TPU block path — batched Pallas kernels (interpret mode
+    """The GPU block path — batched Triton kernels (interpret mode
     on CPU) + FanIn fusion — executed under shard_map on the 8-device
     mesh: each device runs the kernels on its local voice shard and the
     fused mixdown finishes with a psum.  Must match the unsharded

@@ -102,48 +102,21 @@ def test_latch_linear_updown():
     np.testing.assert_allclose(np.asarray(z), [1.5, 5.5], atol=1e-6)
 
 
-def test_sinc_down_layout_frozen_at_construction(monkeypatch):
-    """SincDownFir's state layout (phase-major vs interleaved) is chosen
-    once in __init__ — flipping OSCEN_SINC_PHASEMAJOR afterwards must not
-    desync init_state from process_block (ADVICE r04: the env read
-    per-call crashed when toggled mid-lifecycle), and both layouts
-    produce identical output for the same input stream."""
-    x = np.random.default_rng(3).standard_normal(512).astype(np.float32)
-
-    monkeypatch.delenv("OSCEN_SINC_PHASEMAJOR", raising=False)
-    inter = rs.SincDownFir(4)          # CPU default: interleaved
-    assert not inter.phase_major
-    monkeypatch.setenv("OSCEN_SINC_PHASEMAJOR", "1")
-    pm = rs.SincDownFir(4)             # frozen phase-major
-    assert pm.phase_major
-    # flipping the env after construction changes NEITHER instance
-    monkeypatch.setenv("OSCEN_SINC_PHASEMAJOR", "0")
-
-    si, sp = inter.init_state(), pm.init_state()
-    for _ in range(3):  # multi-block so carried histories are exercised
-        si, yi = inter.process_block(si, jnp.asarray(x))
-        sp, yp = pm.process_block(sp, jnp.asarray(x))
-        np.testing.assert_array_equal(np.asarray(yi), np.asarray(yp))
-
-
-def test_sinc_up_layout_frozen_at_construction(monkeypatch):
-    """SincUpFir phase-major (TPU layout): frozen at construction like
-    SincDownFir, and bit-identical to the interleaved form across
-    carried multi-block histories and every cascade depth."""
-    x = np.random.default_rng(7).standard_normal(512).astype(np.float32)
-    for n in (2, 4, 8):
-        monkeypatch.delenv("OSCEN_SINC_PHASEMAJOR", raising=False)
-        inter = rs.SincUpFir(n)        # CPU default: interleaved
-        assert not inter.phase_major
-        monkeypatch.setenv("OSCEN_SINC_PHASEMAJOR", "1")
-        pm = rs.SincUpFir(n)           # frozen phase-major
-        assert pm.phase_major
-        monkeypatch.setenv("OSCEN_SINC_PHASEMAJOR", "0")  # must not matter
-        si, sp = inter.init_state(), pm.init_state()
-        for _ in range(3):
-            si, yi = inter.process_block(si, jnp.asarray(x))
-            sp, yp = pm.process_block(sp, jnp.asarray(x))
-            np.testing.assert_array_equal(np.asarray(yi), np.asarray(yp))
+@pytest.mark.parametrize("direction", ["up", "down"])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sinc_fir_carried_history_split_invariance(direction, n):
+    """The sinc FIR cascades carry their histories across blocks: a
+    stream processed in three blocks equals the same stream processed in
+    one (every cascade depth, both directions)."""
+    x = np.random.default_rng(n).standard_normal(3 * 256).astype(np.float32)
+    k = rs.SincUpFir(n) if direction == "up" else rs.SincDownFir(n)
+    _, whole = k.process_block(k.init_state(), jnp.asarray(x))
+    st, parts = k.init_state(), []
+    for i in range(3):
+        st, y = k.process_block(st, jnp.asarray(x[i * 256:(i + 1) * 256]))
+        parts.append(np.asarray(y))
+    np.testing.assert_allclose(np.concatenate(parts), np.asarray(whole),
+                               atol=1e-6)
 
 
 def test_sinc_dc_gain_unity():
@@ -376,7 +349,7 @@ def test_oversampled_feedback_island_with_events():
 
 
 def test_iir_halfband_pallas_matches_scan(monkeypatch):
-    """The TPU allpass-cascade kernel (interpret mode) is bit-identical
+    """The allpass-cascade kernel (interpret mode) is bit-identical
     to the sequential lax.scan path (same per-sample op order)."""
     rng = np.random.default_rng(9)
     x = rng.standard_normal(300).astype(np.float32)

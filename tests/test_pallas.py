@@ -1,5 +1,9 @@
-"""Pallas voice-parallel IIR kernels: bit-parity with the per-sample tick
-(interpret mode on CPU; compiled on TPU)."""
+"""The lane-parallel recurrence kernel (one Triton kernel for every
+per-sample recurrence family): parity with the per-sample tick and with
+``lax.scan``, in interpret mode on the CPU (compiled on a GPU)."""
+
+import ast
+import pathlib
 
 import numpy as np
 import pytest
@@ -8,7 +12,19 @@ import jax
 import jax.numpy as jnp
 
 from oscen_tpu import IirLowpass, SampleRate, TptFilter
-from oscen_tpu.ops.pallas.iir import biquad_scan, tpt_svf_scan
+from oscen_tpu.nodes.filters import biquad_step, lp18_step, tpt_step
+from oscen_tpu.ops.pallas import recurrence
+from oscen_tpu.ops.pallas.util import pallas_mode, pick_unroll
+from oscen_tpu.ops.scan import phase_step
+
+
+def kernel_scan(step, init, xs):
+    """The Triton kernel in interpret mode, with the loop body unrolled
+    as on the GPU."""
+    B = max(x.shape[0] for x in jax.tree.leaves(xs))
+    return recurrence._pallas_scan(
+        step, init, xs, B, interpret=True,
+        unroll=pick_unroll(B, recurrence.MAX_UNROLL))
 
 
 def test_tpt_pallas_matches_tick():
@@ -35,9 +51,10 @@ def test_tpt_pallas_matches_tick():
     h = np.array([float(s["h"]) for s in states], np.float32)
     g = np.array([float(s["g"]) for s in states], np.float32)
     k = np.array([float(s["k"]) for s in states], np.float32)
-    y, z0, z1 = tpt_svf_scan(jnp.asarray(x), jnp.asarray(h),
-                             jnp.asarray(g), jnp.asarray(k),
-                             jnp.zeros(V), jnp.zeros(V), interpret=True)
+    (z0, z1), y = kernel_scan(
+        tpt_step, (jnp.zeros(V), jnp.zeros(V)),
+        (jnp.asarray(x), jnp.asarray(h)[None], jnp.asarray(g)[None],
+         jnp.asarray(k)[None]))
     # single-ULP FMA-contraction differences between compilation paths
     np.testing.assert_allclose(np.asarray(y), ys, atol=1e-6)
     np.testing.assert_allclose(np.asarray(z0),
@@ -62,25 +79,23 @@ def test_biquad_pallas_matches_tick():
             st, o = f.tick(st, ins, sr)
             ys[t, v] = float(o["output"])
 
-    ones = np.ones(V, np.float32)
-    y, v1, v2 = biquad_scan(
-        jnp.asarray(x), coef["b0"] * ones, coef["b1"] * ones,
-        coef["b2"] * ones, coef["a1"] * ones, coef["a2"] * ones,
-        jnp.zeros(V), jnp.zeros(V), interpret=True)
+    ones = np.ones((1, V), np.float32)
+    (v1, v2), y = kernel_scan(
+        biquad_step, (jnp.zeros(V), jnp.zeros(V)),
+        (jnp.asarray(x), coef["b0"] * ones, coef["b1"] * ones,
+         coef["b2"] * ones, coef["a1"] * ones, coef["a2"] * ones))
     # tick path has denormal snaps; signals here stay far above 1e-15
     np.testing.assert_allclose(np.asarray(y), ys, atol=1e-7)
 
 
 def test_phase_scan_matches_sequential():
-    """The Pallas phase kernel replays exact per-sample wrapping."""
-    from oscen_tpu.ops.pallas.phase import phase_scan
-
+    """The phase kernel replays exact per-sample wrapping."""
     rng = np.random.default_rng(0)
     V, B = 3, 100
     dt = rng.uniform(0.0, 0.3, (B, V)).astype(np.float32)
     p0 = rng.uniform(0, 1, V).astype(np.float32)
-    before, carry = phase_scan(jnp.asarray(p0), jnp.asarray(dt),
-                               interpret=True)
+    carry, before = kernel_scan(phase_step, jnp.asarray(p0),
+                                jnp.asarray(dt))
     # sequential f32 reference (exact op order)
     p = p0.copy()
     ref = np.zeros((B, V), np.float32)
@@ -94,11 +109,11 @@ def test_phase_scan_matches_sequential():
 
 def test_fm_operator_pallas_matches_tick():
     from oscen_tpu import FmOperator, SampleRate
-    from oscen_tpu.ops.pallas.fm import fm_operator_scan
+    from oscen_tpu.nodes.basic import fm_operator_step
 
     sr = SampleRate(48000.0)
     node = FmOperator()
-    V, B = 2, 62  # B % 8 != 0: the padded tail must not zero `prev`
+    V, B = 2, 62  # B not a multiple of the unroll
     rng = np.random.default_rng(0)
     pm = rng.uniform(-0.2, 0.2, (B, V)).astype(np.float32)
     env = rng.uniform(0.2, 1.0, (B, V)).astype(np.float32)
@@ -119,16 +134,16 @@ def test_fm_operator_pallas_matches_tick():
             ys[t, v] = float(o["output"])
 
     dt = np.broadcast_to(freqs * 2.0 / 48000.0, (B, V)).astype(np.float32)
-    y, phase, prev = fm_operator_scan(
-        jnp.zeros(V), jnp.zeros(V), jnp.asarray(dt), jnp.asarray(pm),
-        jnp.full((B, V), 0.4), jnp.asarray(env), jnp.full((B, V), 0.8),
-        interpret=True)
+    (phase, prev), y = kernel_scan(
+        fm_operator_step, (jnp.zeros(V), jnp.zeros(V)),
+        (jnp.asarray(dt), jnp.asarray(pm), jnp.full((B, V), 0.4),
+         jnp.asarray(env), jnp.full((B, V), 0.8)))
     np.testing.assert_allclose(np.asarray(y), ys, atol=1e-6)
-    # the carried feedback state is the LAST real sample, not padding
+    # the carried feedback state is the LAST sample
     np.testing.assert_allclose(np.asarray(prev), ys[-1], atol=1e-6)
 
 
-def test_fm_chain3_pallas_matches_tick():
+def test_fm_chain3_pallas_matches_tick(monkeypatch):
     """The fused 3-operator chain kernel replays FmOperatorChain.tick
     exactly — including a mid-block pitch change (note-on retune), which
     the kernel must honor per-sample (regression: hoisting base_freq at
@@ -140,7 +155,8 @@ def test_fm_chain3_pallas_matches_tick():
 
     sr = SampleRate(48000.0)
     node = FmOperatorChain()
-    V, B = 2, 70  # B % 8 != 0: padded tail must not corrupt the carry
+    monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", "1")
+    V, B = 2, 70  # B not a multiple of the unroll
     rng = np.random.default_rng(2)
     env3 = rng.uniform(0.1, 1.0, (B, V)).astype(np.float32)
     env2 = rng.uniform(0.1, 1.0, (B, V)).astype(np.float32)
@@ -174,21 +190,22 @@ def test_fm_chain3_pallas_matches_tick():
         jnp.zeros((3, V)), jnp.zeros((3, V)), dt,
         three(0.5, 0.5, 1.0), three(0.3, 0.1, 0.0),
         jnp.full((V,), 0.4), jnp.asarray(env3), jnp.asarray(env2),
-        jnp.asarray(env1), interpret=True)
+        jnp.asarray(env1))
     np.testing.assert_allclose(np.asarray(y), ys, atol=1e-6)
-    # carried prevs row 2 is op1's last REAL sample (not padded tail)
+    # carried prevs row 2 is op1's last sample
     np.testing.assert_allclose(np.asarray(pv)[2], ys[-1], atol=1e-6)
 
 
 @pytest.mark.slow  # >10s on the judge's CPU; slow lane: pytest -m slow
-def test_fm_chain3_zero_feedback_fast_path():
+def test_fm_chain3_zero_feedback_fast_path(monkeypatch):
     """Steady zero-feedback blocks (the reference default,
     fm_voice.rs:16-31) take the vectorized fast branch: the phase carry
     is BIT-identical to the sequential chain kernel and the output/prev
     agree at FMA-formation level (~1 ulp/op — the two programs compile
     separately), chained across blocks; non-zero feedback falls back
     (cond's other branch) and stays bit-exact."""
-    from oscen_tpu.ops.pallas.fm import _fm_chain3_pallas, fm_chain3_scan
+    from oscen_tpu.ops.pallas.fm import fm_chain3_scan
+    monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", "1")
 
     V, B = 4, 64
     rng = np.random.default_rng(3)
@@ -209,9 +226,9 @@ def test_fm_chain3_zero_feedback_fast_path():
             envs = [jnp.asarray(rng.uniform(0.1, 1, (B, V)), jnp.float32)
                     for _ in range(3)]
             ya, ph_a, pv_a = fm_chain3_scan(
-                ph_a, pv_a, dtc, lvl, fb, mix, *envs, interpret=True)
-            yb, ph_b, pv_b = _fm_chain3_pallas(
-                ph_b, pv_b, dtc, lvl, fb, mix, *envs, interpret=True)
+                ph_a, pv_a, dtc, lvl, fb, mix, *envs)
+            yb, ph_b, pv_b = fm_chain3_scan(
+                ph_b, pv_b, dtc, lvl, fb, mix, *envs, fb_static=False)
             np.testing.assert_array_equal(np.asarray(ph_a),
                                           np.asarray(ph_b))
             if fast:
@@ -227,12 +244,12 @@ def test_fm_chain3_zero_feedback_fast_path():
 
 
 @pytest.mark.slow  # >10s on the judge's CPU; slow lane: pytest -m slow
-def test_pivot_chain3_zero_feedback_fast_path():
+def test_pivot_chain3_zero_feedback_fast_path(monkeypatch):
     """Pivot chain: the zero-feedback fast branch is phase-exact vs the
-    sequential pivot kernel (raw-sine prev carry, enveloped routing)
+    sequential pivot scan (raw-sine prev carry, enveloped routing)
     with output/prev at FMA-formation level, chained across blocks."""
-    from oscen_tpu.ops.pallas.fm import (_pivot_chain3_pallas,
-                                         pivot_chain3_scan)
+    from oscen_tpu.ops.pallas.fm import pivot_chain3_scan
+    monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", "1")
 
     V, B = 4, 64
     rng = np.random.default_rng(4)
@@ -251,9 +268,9 @@ def test_pivot_chain3_zero_feedback_fast_path():
         envs = [jnp.asarray(rng.uniform(0.1, 1, (B, V)), jnp.float32)
                 for _ in range(3)]
         ya, ph_a, pv_a = pivot_chain3_scan(
-            ph_a, pv_a, dtc, lvl, fb, mix, *envs, interpret=True)
-        yb, ph_b, pv_b = _pivot_chain3_pallas(
-            ph_b, pv_b, dtc, lvl, fb, mix, *envs, interpret=True)
+            ph_a, pv_a, dtc, lvl, fb, mix, *envs)
+        yb, ph_b, pv_b = pivot_chain3_scan(
+            ph_b, pv_b, dtc, lvl, fb, mix, *envs, fb_static=False)
         np.testing.assert_array_equal(np.asarray(ph_a), np.asarray(ph_b))
         np.testing.assert_allclose(np.asarray(ya), np.asarray(yb),
                                    atol=1e-5)
@@ -261,94 +278,108 @@ def test_pivot_chain3_zero_feedback_fast_path():
                                    atol=1e-5)
 
 
-@pytest.mark.slow  # >10s on the judge's CPU; slow lane: pytest -m slow
-def test_adsr_pallas_matches_tick():
-    """The ADSR Pallas kernel replays the exact per-sample state machine
-    through a full gate-on → A/D/S → gate-off → R → idle cycle."""
-    from oscen_tpu import AdsrEnvelope, SampleRate
-    from oscen_tpu.nodes.envelope import _cached_steps
-    from oscen_tpu.ops.pallas.adsr import adsr_scan
-
-    sr = SampleRate(48000.0)
-    V = 3
-    params = np.array([  # attack, decay, sustain, release (per voice)
-        [0.0005, 0.0010, 0.60, 0.0015],
-        [0.0020, 0.0005, 0.25, 0.0008],
-        [0.0010, 0.0030, 0.90, 0.0030],
-    ], np.float32)
-    vels = np.array([0.8, 1.0, 0.5], np.float32)
-    B1, B2 = 200, 180  # covers A+D+S, then R+idle
-
-    node = AdsrEnvelope()
-    ref = np.zeros((B1 + B2, V), np.float32)
-    states_on, states_off = [], []
-    for v in range(V):
-        ins = dict(zip(("attack", "decay", "sustain", "release"),
-                       map(jnp.float32, params[v])))
-        st = node.on_gate(node.init_state(sr), jnp.float32(vels[v]),
-                          sr, ins)
-        for t in range(B1):
-            st, o = node.tick(st, ins, sr)
-            ref[t, v] = float(o["output"])
-        states_on.append(st)
-        st = node.on_gate(st, jnp.float32(0.0), sr, ins)
-        for t in range(B2):
-            st, o = node.tick(st, ins, sr)
-            ref[B1 + t, v] = float(o["output"])
-        states_off.append(st)
-
-    def pack(sts):
-        keys = ("stage", "rem", "level", "target", "sustain_level",
-                "velocity", "release_inc")
-        return jnp.asarray([[float(s[k]) for s in sts] for k in keys],
-                           jnp.float32)
-
-    pv = {k: jnp.asarray(params[:, i]) for i, k in
-          enumerate(("attack", "decay", "sustain", "release"))}
-    a_n, d_n, r_n, a_c, d_c = _cached_steps(pv, sr.hz)
-
-    def block(st7, nb):
-        return adsr_scan(st7, a_n.astype(jnp.float32),
-                         d_n.astype(jnp.float32), r_n.astype(jnp.float32),
-                         a_c, d_c,
-                         jnp.broadcast_to(pv["sustain"], (nb, V)),
-                         interpret=True)
-
-    y1, st7 = block(pack([node.on_gate(node.init_state(sr),
-                                       jnp.float32(vels[v]), sr,
-                                       {k: jnp.float32(params[v][i])
-                                        for i, k in enumerate(
-                                            ("attack", "decay", "sustain",
-                                             "release"))})
-                          for v in range(V)]), B1)
-    np.testing.assert_allclose(np.asarray(y1), ref[:B1], atol=1e-6)
-    np.testing.assert_allclose(np.asarray(st7), np.asarray(pack(states_on)),
-                               atol=1e-6)
-    y2, st7 = block(pack([node.on_gate(states_on[v], jnp.float32(0.0), sr,
-                                       {k: jnp.float32(params[v][i])
-                                        for i, k in enumerate(
-                                            ("attack", "decay", "sustain",
-                                             "release"))})
-                          for v in range(V)]), B2)
-    np.testing.assert_allclose(np.asarray(y2), ref[B1:], atol=1e-6)
-    np.testing.assert_allclose(np.asarray(st7),
-                               np.asarray(pack(states_off)), atol=1e-6)
-    assert np.all(np.asarray(st7)[0] == 0.0)  # all voices back to IDLE
+@pytest.mark.parametrize("n, cap, want", [
+    (1024, 16, 16), (1024, 64, 64), (96, 64, 32), (256, 48, 32),
+    (7, 16, 1), (1, 16, 1), (1024, 1, 1)])
+def test_pick_unroll_cap_honored(n, cap, want):
+    """The unroll is the largest power of two <= cap dividing n (also
+    for caps that are not powers of two)."""
+    assert pick_unroll(n, cap) == want
 
 
-def test_pick_unroll_cap_honored(monkeypatch):
-    """OSCEN_UNROLL_CAP clamps even at non-power-of-two values, and
-    malformed input raises a clear error (ADVICE r04)."""
-    from oscen_tpu.ops.pallas.util import pick_unroll
+def _lp18_inputs(rng, B, V):
+    return ((jnp.zeros(V),) * 3,
+            (jnp.asarray(rng.normal(size=(B, V)), jnp.float32),
+             jnp.asarray(rng.uniform(0.01, 0.5, (1, V)), jnp.float32),
+             jnp.asarray(rng.uniform(0.0, 1.9, (1, V)), jnp.float32)))
 
-    assert pick_unroll(1024) == 64
-    assert pick_unroll(96) == 32
-    monkeypatch.setenv("OSCEN_UNROLL_CAP", "48")
-    assert pick_unroll(256, 64) == 32          # clamped below the cap
-    monkeypatch.setenv("OSCEN_UNROLL_CAP", "16")
-    assert pick_unroll(1024) == 16
-    monkeypatch.setenv("OSCEN_UNROLL_CAP", "0")
-    assert pick_unroll(1024) == 1
-    monkeypatch.setenv("OSCEN_UNROLL_CAP", "banana")
-    with pytest.raises(ValueError, match="OSCEN_UNROLL_CAP"):
-        pick_unroll(1024)
+
+@pytest.mark.parametrize("V", [1, 3, 130, 256])
+@pytest.mark.parametrize("B", [1, 7, 1024])
+def test_lane_scan_kernel_matches_scan(V, B):
+    """The Triton kernel (interpret mode) against ``lax.scan`` of the same
+    step, at widths and lengths that need lane padding and a partial
+    unroll: phase (bit-exact), TPT with block-constant and per-sample
+    coefficients, and the nonlinear LP18."""
+    rng = np.random.default_rng(V * 7919 + B)
+    dt = jnp.asarray(rng.uniform(0, 0.1, (B, V)), jnp.float32)
+    p0 = jnp.asarray(rng.uniform(0, 1, (V,)), jnp.float32)
+    a = recurrence._plain_scan(phase_step, p0, dt)
+    b = kernel_scan(phase_step, p0, dt)
+    for u, w in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+        assert u.shape == w.shape
+        np.testing.assert_array_equal(np.asarray(u), np.asarray(w))
+
+    x = jnp.asarray(rng.normal(size=(B, V)), jnp.float32)
+    g = jnp.asarray(rng.uniform(0.01, 0.5, (B, V)), jnp.float32)
+    tpt_xs = (x, jnp.full((1, V), 0.5), g, jnp.full((1, V), 1.4))
+    z = (jnp.zeros(V), jnp.zeros(V))
+    for step, init, xs in ((tpt_step, z, tpt_xs),
+                           (lp18_step, *_lp18_inputs(rng, B, V))):
+        a = recurrence._plain_scan(step, init, xs)
+        b = kernel_scan(step, init, xs)
+        for u, w in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+            assert u.shape == w.shape
+            # FMA contraction may differ between the two programs
+            np.testing.assert_allclose(np.asarray(u), np.asarray(w),
+                                       rtol=1e-5, atol=1e-5)
+
+
+def test_lane_scan_vmap_folds_into_lanes(monkeypatch):
+    """Under vmap the batch axis folds into the lanes (one launch); the
+    result equals the vmapped ``lax.scan``, also for inputs that broadcast
+    over a channel lane axis."""
+    monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", "1")
+    rng = np.random.default_rng(0)
+    X = jnp.asarray(rng.normal(size=(3, 64, 2)), jnp.float32)
+    H = jnp.asarray(rng.uniform(0.2, 0.6, (3, 64)), jnp.float32)
+    z = (jnp.zeros((3, 2)), jnp.zeros((3, 2)))
+
+    def run(scan):
+        return jax.jit(jax.vmap(lambda z, x, h: scan(
+            tpt_step, z, (x, h, h * 0.2, h * 2.0))))(z, X, H)
+
+    a = run(recurrence._plain_scan)
+    b = run(recurrence.lane_scan)
+    for u, w in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+        np.testing.assert_allclose(np.asarray(u), np.asarray(w),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("backend, hook, want", [
+    ("gpu", None, (True, False)),
+    ("gpu", "1", (True, False)),     # never interpret mode on a GPU
+    ("cpu", None, (False, False)),   # the plain XLA path
+    ("cpu", "1", (True, True)),      # the interpret-mode test route
+    ("rocm", "1", (False, False)),
+])
+def test_pallas_mode(monkeypatch, backend, hook, want):
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    if hook is None:
+        monkeypatch.delenv("OSCEN_PALLAS_INTERPRET", raising=False)
+    else:
+        monkeypatch.setenv("OSCEN_PALLAS_INTERPRET", hook)
+    assert pallas_mode() == want
+
+
+def test_kernels_use_only_the_triton_route():
+    """Every Pallas import under the package is the core API or the
+    Triton route: no other backend's kernel language is used."""
+    root = pathlib.Path(__file__).resolve().parents[1] / "oscen_tpu"
+    routes = set()
+    for path in root.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                mods = [node.module] + [f"{node.module}.{a.name}"
+                                        for a in node.names]
+            else:
+                continue
+            for mod in mods:
+                parts = mod.split(".")
+                if parts[:3] == ["jax", "experimental", "pallas"] \
+                        and len(parts) > 3 and parts[3].islower():
+                    routes.add(parts[3])
+                    assert parts[3] == "triton", (path, mod)
+    assert routes == {"triton"}
